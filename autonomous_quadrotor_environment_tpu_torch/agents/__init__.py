@@ -1,6 +1,32 @@
-"""Policy networks and the rollout of the port."""
+"""Policy networks, GAE and the PPO trainer of the port."""
 
-from .networks import ActorCritic
-from .ppo import Rollout, rollout_batch_fused, rollout_batch_fused_raw
+from .gae import gae_advantages
+from .networks import ActorCritic, DiagGaussian
+from .ppo import (
+    PPOTrainState,
+    Rollout,
+    evaluate,
+    make_eval_fn,
+    make_train_loop,
+    make_train_step,
+    ppo_init,
+    ppo_update_t,
+    rollout_batch_fused,
+    rollout_batch_fused_raw,
+)
 
-__all__ = ["ActorCritic", "Rollout", "rollout_batch_fused", "rollout_batch_fused_raw"]
+__all__ = [
+    "ActorCritic",
+    "DiagGaussian",
+    "PPOTrainState",
+    "Rollout",
+    "evaluate",
+    "gae_advantages",
+    "make_eval_fn",
+    "make_train_loop",
+    "make_train_step",
+    "ppo_init",
+    "ppo_update_t",
+    "rollout_batch_fused",
+    "rollout_batch_fused_raw",
+]

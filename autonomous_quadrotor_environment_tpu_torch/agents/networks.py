@@ -4,10 +4,12 @@ Counterpart of `agents/networks.py:ActorCritic` in the JAX package: a tanh
 MLP actor (75 -> N -> N -> 4, tanh output) and critic (75 -> N -> N -> 1),
 with a fixed action standard deviation. Initialization is the JAX package's
 orthogonal recipe (gain sqrt(2) hidden, 0.01 policy head, 1 value head).
+`DiagGaussian` is the factorized Normal policy head.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -60,7 +62,7 @@ class ActorCritic(nn.Module):
         """obs (B, 75) -> (mean (B, 4), value (B,), log_std (scalar))."""
         mean = self.actor(obs)
         value = self.critic(obs).squeeze(-1)
-        log_std = torch.tensor(math.log(self.action_std), dtype=obs.dtype, device=obs.device)
+        log_std = torch.tensor(math.log(self.action_std), dtype=torch.float32, device=obs.device)
         return mean, value, log_std
 
     def linears(self) -> list[nn.Linear]:
@@ -86,3 +88,51 @@ class ActorCritic(nn.Module):
                 layer.weight.copy_(torch.from_numpy(kernel.T.copy()))
                 layer.bias.copy_(torch.from_numpy(bias.copy()))
         return model
+
+    @classmethod
+    def from_leaves(cls, leaves: list, action_std: float = 0.1) -> "ActorCritic":
+        """Build from the 12 leaves in `LEAVES` order, kernels (out, in) and
+        biases (out, 1) or (out,), on their device (a copy)."""
+        w1, w3 = leaves[0], leaves[4]
+        model = cls(hidden=w1.shape[0], obs_dim=w1.shape[1], act_dim=w3.shape[0],
+                    action_std=action_std).to(device=w1.device)
+        with torch.no_grad():
+            for layer, w, b in zip(model.linears(), leaves[0::2], leaves[1::2]):
+                layer.weight.copy_(w)
+                layer.bias.copy_(b.reshape(-1))
+        return model
+
+
+def to_flax(model: ActorCritic) -> dict:
+    """The inverse of `ActorCritic.from_flax`: the flax param tree of float32
+    numpy arrays, kernels (in, out) and biases (out,)."""
+    p: dict = {}
+    for layer, (head, name) in zip(model.linears(), [l[:2] for l in LEAVES[0::2]]):
+        p.setdefault(head, {})[name] = {
+            "kernel": layer.weight.detach().cpu().numpy().T.copy(),
+            "bias": layer.bias.detach().cpu().numpy().copy(),
+        }
+    return {"params": p}
+
+
+@dataclasses.dataclass(frozen=True)
+class DiagGaussian:
+    """Factorized Normal policy head (reference model.py:62, torch Normal);
+    ``log_std`` stays float32 whatever the mean's type."""
+
+    mean: torch.Tensor
+    log_std: torch.Tensor
+
+    @property
+    def std(self) -> torch.Tensor:
+        return torch.exp(self.log_std)
+
+    def log_prob(self, x: torch.Tensor) -> torch.Tensor:
+        """Per-dimension log probability (summed by the caller, matching the
+        reference's `logprobs.sum(axis=2)` ppo.py:190)."""
+        z = (x - self.mean) / self.std
+        return -0.5 * z**2 - self.log_std - 0.5 * math.log(2.0 * math.pi)
+
+    def entropy(self) -> torch.Tensor:
+        """Per-dimension entropy (reference sums it, ppo.py:198)."""
+        return 0.5 + 0.5 * math.log(2.0 * math.pi) + self.log_std * torch.ones_like(self.mean)

@@ -1,9 +1,10 @@
-"""The configuration dataclasses and constants the port's hover slice reads.
+"""The configuration dataclasses and constants the port's hover slice and
+its PPO trainer read.
 
 A copy of the matching part of `autonomous_quadrotor_environment_tpu/config.py`
 (the port imports nothing of the JAX package); tests hold
-``dataclasses.asdict(EnvConfig())`` equal on both sides so the copies cannot
-drift.
+``dataclasses.asdict`` of `EnvConfig`, `PPOConfig` and `TrainConfig` equal on
+both sides so the copies cannot drift.
 """
 
 from __future__ import annotations
@@ -124,3 +125,68 @@ class EnvConfig:
     def max_steps(self) -> int:
         """Episode budget n + warmup."""
         return self.n_steps + self.warmup
+
+
+@dataclasses.dataclass(frozen=True)
+class PPOConfig:
+    """PPO hyperparameters (reference ppo.py:297-318). The fields the port
+    does not run yet (``learn_std``, ``fused_adam``, ``fused_compute="bf16"``,
+    the reshuffle modes) are kept so the config compares equal to the JAX
+    package's; `agents.ppo.make_train_step` refuses them."""
+
+    lr: float = 5e-4
+    gamma: float = 0.99
+    gae_lambda: float = 0.99
+    clip_eps: float = 0.2
+    entropy_coef: float = 0.006
+    value_coef: float = 0.5
+    k_epochs: int = 10
+    minibatch_size: int = 0       # 0 = full batch (reference state PPO)
+    action_std: float = 0.1
+    learn_std: bool = False       # FIXED_STD=True in reference ppo.py:301
+    adam_b1: float = 0.9
+    adam_b2: float = 0.999
+    max_grad_norm: float = 0.0    # 0 = no clipping (reference has none)
+    # Minibatches permute contiguous blocks of this many rows of the
+    # flattened (T, B) batch (different envs at one timestep).
+    shuffle_block: int = 128
+    # The fused update kernel (ops/ppo_fused_t.py on the fully fused path).
+    fused_update: bool = False
+    # Product operand type inside the fused update kernel ("f32" or "bf16").
+    fused_compute: str = "f32"
+    # The Adam step inside the update kernel (kernel B4, not ported yet).
+    fused_adam: bool = False
+    reshuffle_per_update: bool = False
+    reshuffle_per_epoch: bool = False
+
+    @staticmethod
+    def landing_variant() -> "PPOConfig":
+        """Visual-landing PPO (reference ppo_trainer.py:28-38, :122)."""
+        return PPOConfig(
+            lr=2e-5,
+            k_epochs=5,
+            minibatch_size=1536,
+            entropy_coef=0.01,
+            learn_std=True,
+            shuffle_block=1,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Rollout/training-loop shape for the state controller."""
+
+    num_envs: int = 64            # parallel envs
+    rollout_steps: int = 80       # steps per env per update
+    network_size: int = 128       # hidden width N
+    hist_t: int = 5               # featurizer window T
+    updates: int = 2000
+    eval_every: int = 5
+    eval_episodes: int = 40
+    seed: int = 0
+    # Fresh-episode pool of the unfused rollout (not ported yet).
+    reset_pool: int = 0
+    # The whole-rollout kernel (ops/rollout_fused.py) and the depth of its
+    # fresh-episode pool for auto-reset.
+    fused_rollout: bool = False
+    fused_pool: int = 4

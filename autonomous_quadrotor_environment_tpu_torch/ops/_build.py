@@ -32,6 +32,7 @@ NVCC_FLAGS = [
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "rollout_fused": [_P] * 3 + [_P] * 12 + [_P] * 3 + [_I] * 3 + [_P, _F, _F, _I, _P],
+    "ppo_fused_t": [_P] * 6 + [_I] * 5 + [_F] * 5 + [_I, _P],
 }
 
 

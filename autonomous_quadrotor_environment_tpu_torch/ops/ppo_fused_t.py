@@ -1,0 +1,229 @@
+"""PPO minibatch loss and weight gradients on the transposed batch.
+
+Counterpart of `ops/ppo_fused_t.py:fused_ppo_grad_t` in the JAX package.
+`fused_ppo_grad_t` computes, over the minibatch's row blocks of the rollout
+kernel's (T, features, B) output, the clipped-surrogate + value loss of
+`agents.ppo.ppo_loss` and the gradients of all 12 ActorCritic leaves:
+
+* on CUDA tensors, as one launch of the hand-written kernel in
+  `csrc/ppo_fused_t.cu` (plus its fixed-order reduction pass);
+* on CPU tensors, as `ppo_grad_t_plain`: the rows gathered by block id and
+  `torch.autograd` of `ppo_loss` on them, which is also the reference the
+  kernel is held against on the card.
+
+A block is ``tile`` consecutive envs at one timestep; block id p is
+timestep ``p // (B // tile)`` and envs ``(p % (B // tile)) * tile`` onward.
+aux rows are [action(4), old logprob sum, return, advantage, 0].
+
+Gradients come back in `nn.Linear`'s own layout, kernels (out, in) and
+biases (out,), so they go straight into ``.grad``; the JAX wrapper's
+transpose back to flax's (in, out) has no counterpart here. Entropy is
+constant under the fixed std: it adds to the loss and the metrics outside
+the kernel, as in the JAX wrapper.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import _build
+from .rollout_fused import _check, transpose_leaves
+
+OBS = 75
+HIDDEN = 128  # the one hidden width the kernel is built for
+ACT = 4
+CHUNK = 32    # rows per chunk in the kernel: a tile must be a multiple
+_LOG_2PI = math.log(2.0 * math.pi)
+
+
+def entropy_const(action_std: float) -> float:
+    """Summed per-dimension entropy of the fixed-std Gaussian head."""
+    return ACT * (0.5 + 0.5 * _LOG_2PI + math.log(action_std))
+
+
+def supports(obs_t: torch.Tensor, leaves: list, tile: int) -> bool:
+    """What the kernel takes: hidden 128, 75-dim obs, 4 actions, and env
+    tiles that divide B and are a multiple of 32. It computes in f32 under
+    the fixed std it is given (`agents.ppo.make_train_step` refuses a
+    learned std and bf16 products)."""
+    _, obs_dim, b = obs_t.shape
+    return (
+        obs_dim == OBS
+        and len(leaves) == 12
+        and tuple(leaves[0].shape) == (HIDDEN, OBS)
+        and tuple(leaves[4].shape)[0] == ACT
+        and tile > 0
+        and tile % CHUNK == 0
+        and b % tile == 0
+    )
+
+
+def _leaves(model_or_leaves) -> list[torch.Tensor]:
+    """12 leaves in flax leaf order: kernels (out, in), biases (out, 1)."""
+    if isinstance(model_or_leaves, (list, tuple)):
+        return list(model_or_leaves)
+    return transpose_leaves(model_or_leaves)
+
+
+def _gather_rows(x_t: torch.Tensor, perm: torch.Tensor, tile: int) -> torch.Tensor:
+    """(T, F, B) and block ids -> the blocks' rows, (n_blocks * tile, F)."""
+    blocks_per_t = x_t.shape[2] // tile
+    perm = perm.long()
+    t_ids = (perm // blocks_per_t)[:, None]
+    cols = (perm % blocks_per_t)[:, None] * tile + torch.arange(tile, device=x_t.device)[None]
+    return x_t[t_ids, :, cols].reshape(-1, x_t.shape[1])
+
+
+def ppo_grad_t_plain(model_or_leaves, obs_t, aux_t, perm, *, tile: int,
+                     action_std: float, clip_eps: float, entropy_coef: float):
+    """The plain PyTorch version: gather the minibatch's rows by block id and
+    take `torch.autograd` of the port's `ppo_loss` on them. The mean over
+    the rows scales the gradients by 1/mb, as the kernel does.
+
+    It is an independent check of the kernel's hand-derived backward, and
+    agrees with it everywhere except at ratio == 1 +- clip_eps exactly:
+    there `torch.clamp`'s gradient is inclusive of the bounds while the
+    kernel's (and `lax.clamp`'s) is strict.
+
+    Returns ``(loss, metrics, grads)`` like `fused_ppo_grad_t`."""
+    from ..agents.networks import ActorCritic
+    from ..agents.ppo import ppo_loss
+    from ..config import PPOConfig
+
+    if isinstance(model_or_leaves, (list, tuple)):
+        model = ActorCritic.from_leaves(model_or_leaves, action_std)
+    else:
+        model = model_or_leaves
+    obs = _gather_rows(obs_t, perm, tile)
+    aux = _gather_rows(aux_t, perm, tile)
+    cfg = PPOConfig(clip_eps=clip_eps, entropy_coef=entropy_coef, action_std=action_std)
+    params = [p for layer in model.linears() for p in (layer.weight, layer.bias)]
+    with torch.enable_grad():
+        loss, metrics = ppo_loss(
+            model, obs, aux[:, 0:4], aux[:, 4:5], aux[:, 5], aux[:, 6], cfg
+        )
+        grads = torch.autograd.grad(loss, params)
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    return loss.detach(), metrics, list(grads)
+
+
+def _leaf_shapes(hidden: int, n_act: int = ACT) -> list[tuple]:
+    return [
+        (hidden, OBS), (hidden,), (hidden, hidden), (hidden,), (n_act, hidden), (n_act,),
+        (hidden, OBS), (hidden,), (hidden, hidden), (hidden,), (1, hidden), (1,),
+    ]
+
+
+def _pack(leaves: list[torch.Tensor]) -> torch.Tensor:
+    """The kernel's (2, PACK) weights: per head W1 transposed and padded to
+    76 inputs, W2 transposed, W2, W3 padded to 4 rows, b1, b2, b3 padded."""
+    heads = []
+    for w1, b1, w2, b2, w3, b3 in (leaves[:6], leaves[6:]):
+        dev = w1.device
+        w1t = torch.zeros(OBS + 1, HIDDEN, dtype=torch.float32, device=dev)
+        w1t[:OBS] = w1.t()
+        w3p = torch.zeros(ACT, HIDDEN, dtype=torch.float32, device=dev)
+        w3p[: w3.shape[0]] = w3
+        b3p = torch.zeros(ACT, dtype=torch.float32, device=dev)
+        b3p[: w3.shape[0]] = b3.reshape(-1)
+        heads.append(torch.cat([
+            w1t.reshape(-1), w2.t().reshape(-1), w2.reshape(-1), w3p.reshape(-1),
+            b1.reshape(-1), b2.reshape(-1), b3p,
+        ]))
+    return torch.stack(heads).contiguous()
+
+
+def _launch(leaves, obs_t, aux_t, perm, tile, action_std, clip_eps):
+    device = obs_t.device
+    steps, _, b = obs_t.shape
+    _check("obs_t", obs_t, (steps, OBS, b), device)
+    _check("aux_t", aux_t, (steps, 8, b), device)
+    if perm.dim() != 1 or perm.numel() < 1:
+        raise ValueError("perm must be a non-empty 1-D tensor of block ids")
+    _check("perm", perm, (perm.shape[0],), device, torch.int32)
+    for i, (w, shape) in enumerate(zip(leaves, _leaf_shapes(HIDDEN))):
+        if w.device != device or w.dtype != torch.float32 or w.numel() != math.prod(shape):
+            raise ValueError(
+                f"leaf {i}: the kernel takes hidden width {HIDDEN}: want float32 "
+                f"{shape} on {device}, got {w.dtype} {tuple(w.shape)} on {w.device}"
+            )
+    n_blocks = perm.shape[0]
+    mb = n_blocks * tile
+    lib = _build.load("ppo_fused_t")
+    pack = _pack(leaves)
+    if pack.shape[1] != lib.ppo_fused_t_pack_floats():
+        raise RuntimeError("weight pack size disagrees with the kernel's")
+    n_chunks = n_blocks * (tile // CHUNK)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    ctas = max(1, min(sms // 2, n_chunks))  # CTAs per head
+    work = torch.empty(2 * ctas * lib.ppo_fused_t_partial_floats(), dtype=torch.float32,
+                       device=device)
+    out = torch.empty(lib.ppo_fused_t_out_floats(), dtype=torch.float32, device=device)
+    log_std = math.log(action_std)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.ppo_fused_t(
+            obs_t.data_ptr(), aux_t.data_ptr(), perm.data_ptr(), pack.data_ptr(),
+            work.data_ptr(), out.data_ptr(),
+            steps, b, tile, n_blocks, ctas,
+            1.0 / action_std, ACT * (log_std + 0.5 * _LOG_2PI),
+            1.0 - clip_eps, 1.0 + clip_eps, 1.0 / mb,
+            device.index, stream,
+        )
+    if err != 0:
+        msg = lib.cuda_error_string(err).decode()
+        raise RuntimeError(f"ppo_fused_t kernel launch failed: error {err} ({msg})")
+    fused_ppo_grad_t.launches += 1
+    grads, off = [], 0
+    for shape in _leaf_shapes(HIDDEN):
+        size = math.prod(shape)
+        grads.append(out[off:off + size].view(shape))
+        off += size
+    actor_sum, critic_sum, rmax = out[off], out[off + 1], out[off + 2]
+    return actor_sum, critic_sum, rmax, mb, grads
+
+
+def fused_ppo_grad_t(model_or_leaves, obs_t: torch.Tensor, aux_t: torch.Tensor,
+                     perm: torch.Tensor, *, tile: int, action_std: float,
+                     clip_eps: float, entropy_coef: float):
+    """Loss, metrics and the 12 gradients of one minibatch given as block
+    ids: one kernel launch for CUDA tensors, the plain version for CPU
+    tensors.
+
+    ``model_or_leaves`` is an `ActorCritic` or its 12 leaves in flax leaf
+    order (kernels (out, in), biases (out, 1) or (out,)). Returns ``(loss,
+    metrics, grads)``: 0-dim tensors, metrics ``actor_loss``,
+    ``critic_loss``, ``entropy`` and ``ratio_max``, and the gradients in
+    leaf order, kernels (out, in), biases (out,).
+    `fused_ppo_grad_t.launches` counts the kernel launches."""
+    if obs_t.device.type == "cpu":
+        return ppo_grad_t_plain(
+            model_or_leaves, obs_t, aux_t, perm, tile=tile, action_std=action_std,
+            clip_eps=clip_eps, entropy_coef=entropy_coef,
+        )
+    if obs_t.device.type != "cuda":
+        raise ValueError(f"fused_ppo_grad_t runs on CUDA or CPU tensors, not {obs_t.device}")
+    leaves = _leaves(model_or_leaves)
+    if not supports(obs_t, leaves, tile):
+        raise ValueError(
+            "the ppo_fused_t kernel takes hidden width 128, 75-dim obs, 4 actions "
+            f"and a tile that is a multiple of {CHUNK} dividing B; got leaves "
+            f"{[tuple(l.shape) for l in leaves[:1]]}, obs {tuple(obs_t.shape)}, tile {tile}"
+        )
+    actor_sum, critic_sum, rmax, mb, grads = _launch(
+        leaves, obs_t, aux_t, perm, tile, action_std, clip_eps
+    )
+    entropy = entropy_const(action_std)
+    loss = (actor_sum + critic_sum) / mb - entropy_coef * entropy
+    metrics = {
+        "actor_loss": actor_sum / mb,
+        "critic_loss": critic_sum / mb,
+        "entropy": torch.full((), entropy, dtype=torch.float32, device=obs_t.device),
+        "ratio_max": rmax,
+    }
+    return loss, metrics, grads
+
+
+fused_ppo_grad_t.launches = 0

@@ -564,10 +564,10 @@ def _leaf_shapes(hidden: int) -> list[tuple]:
     ]
 
 
-def _check(name, t, shape, device):
-    if t.device != device or t.dtype != torch.float32 or tuple(t.shape) != tuple(shape):
+def _check(name, t, shape, device, dtype=torch.float32):
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape):
         raise ValueError(
-            f"{name}: want float32 {tuple(shape)} on {device}, "
+            f"{name}: want {dtype} {tuple(shape)} on {device}, "
             f"got {t.dtype} {tuple(t.shape)} on {t.device}"
         )
     if not t.is_contiguous():

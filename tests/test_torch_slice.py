@@ -125,7 +125,10 @@ for mod in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(mod.name)
 import chip_smoke
 assert callable(chip_smoke.main)
-print("imported", sorted(m for m in sys.modules if m.startswith(pkg.__name__)).__len__())
+mods = sorted(m for m in sys.modules if m.startswith(pkg.__name__))
+for name in ("agents.gae", "agents.ppo", "ops.ppo_fused_t", "ops.rollout_fused"):
+    assert pkg.__name__ + "." + name in mods, name
+print("imported", len(mods))
 """
 
 
@@ -135,7 +138,7 @@ def test_port_and_chip_smoke_import_nothing_of_jax():
         timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 14
+    assert int(proc.stdout.split()[-1]) >= 16
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])

@@ -65,3 +65,27 @@ def assert_states_close(ps: EnvState, js, rtol=RTOL, atol=ATOL) -> None:
             np.asarray(getattr(js, name)).astype(np.float32),
             rtol=rtol, atol=atol, err_msg=name,
         )
+
+
+def assert_params_close(model, jparams, atol):
+    """The port's model against a flax param tree, leaf by leaf, within
+    ``atol`` (rtol 0)."""
+    from autonomous_quadrotor_environment_tpu_torch.agents.networks import LEAVES, to_flax
+
+    got = to_flax(model)["params"]
+    want = jparams["params"]
+    for head, name, kind in LEAVES:
+        np.testing.assert_allclose(
+            got[head][name][kind], np.asarray(want[head][name][kind]),
+            atol=atol, rtol=0, err_msg=f"{head}/{name}/{kind}",
+        )
+
+
+def jax_perms(key, k_epochs, n_blocks, n_mb):
+    """The block permutations the JAX package's `ppo_update_t` draws from
+    ``key``: (k_epochs, n_mb, n_blocks // n_mb)."""
+    import jax
+
+    keys = jax.random.split(key, k_epochs)
+    perms = [np.asarray(jax.random.permutation(k, n_blocks)) for k in keys]
+    return np.stack([p[: n_mb * (n_blocks // n_mb)].reshape(n_mb, -1) for p in perms])
