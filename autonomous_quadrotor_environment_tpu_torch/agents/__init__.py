@@ -10,9 +10,14 @@ from .ppo import (
     make_train_loop,
     make_train_step,
     ppo_init,
+    ppo_update,
     ppo_update_t,
+    rollout_batch,
     rollout_batch_fused,
     rollout_batch_fused_raw,
+    rowmajor_step_from_inputs,
+    train_branch,
+    update_plan,
 )
 
 __all__ = [
@@ -26,7 +31,12 @@ __all__ = [
     "make_train_loop",
     "make_train_step",
     "ppo_init",
+    "ppo_update",
     "ppo_update_t",
+    "rollout_batch",
     "rollout_batch_fused",
     "rollout_batch_fused_raw",
+    "rowmajor_step_from_inputs",
+    "train_branch",
+    "update_plan",
 ]

@@ -1,24 +1,39 @@
-"""PPO trainer for the state controller on the fully fused path.
+"""PPO trainer for the state controller.
 
-Counterpart of `agents/ppo.py` in the JAX package, for the branch that its
-`make_train_step` takes when both fused flags are on (`use_fused_t`): the
-whole-rollout kernel (`ops.rollout_fused`), GAE, and the K-epoch
-minibatched update through the PPO gradient kernel (`ops.ppo_fused_t`),
-every batch array in the rollout kernel's (T, features, B) orientation.
+Counterpart of `agents/ppo.py` in the JAX package. Its `make_train_step`
+takes one of two branches, by the JAX package's own gates:
+
+* the fully fused branch (`use_fused_t`: both fused flags on and an env
+  tile that `update_t_tile` admits): the whole-rollout kernel
+  (`ops.rollout_fused`), GAE, and the K-epoch minibatched update through
+  the transposed PPO gradient kernel (`ops.ppo_fused_t`), every batch array
+  in the rollout kernel's (T, features, B) orientation;
+* the row-major branch, at every other configuration (the trainer's
+  defaults among them): `rollout_batch` (per-step auto-reset or a reset
+  pool) or, where the rollout kernel is eligible, `rollout_batch_fused`;
+  then `ppo_update`, GAE inside, whose minibatch gradients come from
+  autograd of `ppo_loss`, or with ``fused_update`` from the row-major
+  kernel `ops.ppo_fused.fused_ppo_grad`, or with ``fused_adam`` from
+  `fused_ppo_grad_adam`, which takes the Adam step inside the kernel.
 
 Differences of form from the JAX package:
 
-* The model's `nn.Linear` layers hold the parameters and a
-  `torch.optim.Adam` holds the optimizer state; a train step updates both
-  in place. `PPOTrainState` carries them with the env states.
-* A `torch.Generator` replaces the PRNG key. One step draws, in order, the
-  action noise and the reset pool (`fused_inputs`), then one block
-  permutation per epoch. The JAX package's streams cannot be reproduced,
-  so each piece also takes its randomness as an argument
-  (`train_step_from_inputs`, ``perms``), which the parity tests use.
-* Configurations off the fused branch (the unfused rollout and update, a
-  learned std, the Adam step inside the kernel, bf16 products) are not
-  ported yet and are refused with the ROADMAP item that will port them.
+* The model's parameters (`nn.Linear` layers, and ``log_std`` with a
+  learned std) and a `torch.optim.Adam` hold the state; a train step
+  updates both in place. `PPOTrainState` carries them with the env states.
+* A `torch.Generator` replaces the PRNG key. A fully fused step draws, in
+  order, the action noise and the reset pool (`fused_inputs`), then one
+  block permutation per epoch; a row-major step draws its rollout's noise
+  and fresh episodes (`rollout_batch`), or the fused rollout's inputs, then
+  the permutations. The JAX package's streams cannot be reproduced, so
+  each piece also takes its randomness as an argument
+  (`train_step_from_inputs`, `rowmajor_step_from_inputs`, ``perms``),
+  which the parity tests use.
+* Configurations still to be ported (randomization, bf16 products) are
+  refused with the ROADMAP item that will port them, and on the card so
+  are shapes that the JAX package sends to a kernel the port's kernels do
+  not take yet (hidden widths other than 128, B2 tiles that are not a
+  multiple of 32).
 """
 
 from __future__ import annotations
@@ -32,8 +47,9 @@ import torch
 from ..config import EnvConfig, PPOConfig, TrainConfig
 from ..device import resolve_device
 from ..envs import hover
+from ..ops import ppo_fused as pfr
 from ..ops import rollout_fused as rf
-from ..ops.ppo_fused_t import fused_ppo_grad_t
+from ..ops.ppo_fused_t import CHUNK, fused_ppo_grad_t
 from .gae import gae_advantages
 from .networks import ActorCritic, DiagGaussian
 
@@ -65,9 +81,10 @@ class PPOTrainState:
 
 def make_optimizer(model: ActorCritic, cfg: PPOConfig) -> torch.optim.Adam:
     """`optax.adam(lr, b1, b2)` (eps 1e-8 outside the sqrt, bias correction
-    by the incremented step count). Gradient clipping, when
+    by the incremented step count) over every parameter of the model, the
+    learned ``log_std`` included. Gradient clipping, when
     ``cfg.max_grad_norm > 0``, is `clip_by_global_norm_`, applied by
-    `ppo_update_t` before each step."""
+    `ppo_update` and `ppo_update_t` before each step."""
     return torch.optim.Adam(
         model.parameters(), lr=cfg.lr, betas=(cfg.adam_b1, cfg.adam_b2), eps=1e-8
     )
@@ -92,18 +109,17 @@ def ppo_init(
     obs_dim: int = 75,
     device=None,
 ) -> tuple[ActorCritic, torch.optim.Adam, PPOTrainState]:
-    """Build the model (orthogonal init from ``seed``), the optimizer, and
-    the train state with a batch of freshly reset envs, on ``device`` (the
-    CUDA card when None). The state's generator lives on that device,
-    seeded with ``seed + 1`` so that on the CPU its draws are not the
-    init's."""
+    """Build the model (orthogonal init from ``seed``; a learned float32
+    ``log_std`` with ``ppo_cfg.learn_std``), the optimizer, and the train
+    state with a batch of freshly reset envs, on ``device`` (the CUDA card
+    when None). The state's generator lives on that device, seeded with
+    ``seed + 1`` so that on the CPU its draws are not the init's."""
     dev = resolve_device(device)
-    if ppo_cfg.learn_std:
-        raise NotImplementedError("a learned log_std is not ported yet (ROADMAP A6)")
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         model = ActorCritic(
-            hidden=train_cfg.network_size, obs_dim=obs_dim, action_std=ppo_cfg.action_std
+            hidden=train_cfg.network_size, obs_dim=obs_dim, action_std=ppo_cfg.action_std,
+            learn_std=ppo_cfg.learn_std,
         )
     model = model.to(dev)
     opt = make_optimizer(model, ppo_cfg)
@@ -112,6 +128,79 @@ def ppo_init(
     return model, opt, PPOTrainState(
         model=model, optimizer=opt, env_states=env_states, gen=gen, update_i=0
     )
+
+
+# ---------------------------------------------------------------------------
+# Rollout, step by step
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def rollout_batch(
+    model: ActorCritic,
+    env_states: hover.EnvState,
+    gen: Optional[torch.Generator],
+    env_cfg: EnvConfig,
+    steps: int,
+    reset_pool: int = 0,
+    noise: Optional[torch.Tensor] = None,
+    fresh_x0: Optional[torch.Tensor] = None,
+) -> tuple[hover.EnvState, Rollout, torch.Tensor]:
+    """Collect ``steps`` transitions from every env of the batch (JAX
+    ppo.py:129-217): the policy acts on the env's window before the step,
+    action = mean + std * eps, and a finished episode is replaced at once.
+
+    * ``reset_pool=0``: every step is `hover.step_autoreset`, each env's
+      fresh episode for step t being its own fresh reset.
+    * ``reset_pool=P``: a pool of P x B fresh episodes for the whole
+      rollout; env b's k-th finished episode is replaced by pool entry
+      (k mod P, b), as the JAX package's per-env ``slot`` does.
+
+    The randomness is drawn from ``gen`` in this order unless given: the
+    action noise eps (T, B, 4) ~ N(0, 1), then the fresh episodes, as
+    initial physical states ``fresh_x0`` ((T, B, 13) without a pool,
+    (P, B, 13) with one) that `hover.reset` warms up (it draws a velocity
+    task's targets from ``gen``). All fresh episodes are reset in one
+    batch before the first step: each is an independent draw from the reset
+    distribution, so this equals resetting them step by step, and the step
+    loop selects with `torch.where` and never waits on the host.
+
+    Returns ``(new_env_states, rollout, bootstrap)``, the rollout
+    time-major (T, B, ...), bootstrap the critic's value of the final
+    windows."""
+    b = env_states.x.shape[0]
+    dev = env_states.x.device
+    if noise is None:
+        noise = torch.randn(steps, b, 4, generator=gen, device=dev)
+    n_fresh = reset_pool if reset_pool > 0 else steps
+    if fresh_x0 is None:
+        fresh = hover.reset(gen, env_cfg, n=n_fresh * b, dtype=env_states.x.dtype)
+    else:
+        fresh = hover.reset(gen, env_cfg, det_state=fresh_x0.reshape(n_fresh * b, 13),
+                            dtype=env_states.x.dtype)
+    env_idx = torch.arange(b, device=dev)
+    slot = torch.zeros(b, dtype=torch.long, device=dev)
+    states, rows = env_states, []
+    for t in range(steps):
+        obs = states.hist
+        mean, value, log_std = model(obs)
+        dist = DiagGaussian(mean, log_std)
+        action = mean + dist.std * noise[t]
+        logprob = dist.log_prob(action)
+        if reset_pool > 0:
+            stepped, out = hover.step(states, action, env_cfg)
+            states = hover.where_done(
+                out.done, hover.take_envs(fresh, (slot % reset_pool) * b + env_idx), stepped
+            )
+            slot = slot + out.done.long()
+        else:
+            states, out = hover.step_autoreset(
+                states, action, env_cfg, fresh=hover.take_envs(fresh, slice(t * b, (t + 1) * b))
+            )
+        rows.append((obs, action, logprob, value, out.reward, out.done, out.solved))
+    _, bootstrap, _ = model(states.hist)
+    roll = Rollout(*(torch.stack(field) for field in zip(*rows)))
+    return states, roll, bootstrap
 
 
 # ---------------------------------------------------------------------------
@@ -189,7 +278,13 @@ def rollout_batch_fused(
     new_states, obs_t, misc, bootstrap = rollout_batch_fused_raw(
         model, env_states, gen, env_cfg, steps, pool_size
     )
-    roll = Rollout(
+    return new_states, kernel_rollout(obs_t, misc), bootstrap
+
+
+def kernel_rollout(obs_t: torch.Tensor, misc: torch.Tensor) -> Rollout:
+    """The rollout kernel's (T, 75, B) and (T, 16, B) outputs as a
+    time-major `Rollout` of (T, B, ...) views."""
+    return Rollout(
         obs=obs_t.transpose(1, 2),
         actions=misc[:, 0:4].transpose(1, 2),
         logprobs=misc[:, 4:8].transpose(1, 2),
@@ -198,7 +293,6 @@ def rollout_batch_fused(
         dones=misc[:, 10] > 0.5,
         solved=misc[:, 11] > 0.5,
     )
-    return new_states, roll, bootstrap
 
 
 # ---------------------------------------------------------------------------
@@ -313,9 +407,143 @@ def ppo_update_t(
     return out
 
 
+class UpdatePlan(NamedTuple):
+    """How `ppo_update` cuts the batch and which minibatch gradient it runs,
+    decided as the JAX package's `ppo_update` decides it (ppo.py:360-408)."""
+
+    n: int            # rows of the batch
+    mb: int           # rows per minibatch
+    n_mb: int         # minibatches per epoch
+    block: int        # shuffle block; 1 when the rows do not divide
+    full_batch: bool  # every row each step: no shuffle
+    branch: str       # "autograd", "fused" (kernel B3) or "fused_adam" (B4)
+    tile: int         # the kernels' row block; 0 on the autograd branch
+
+
+def update_plan(cfg: PPOConfig, n: int, learn_std: bool = False,
+                plain_adam: bool = True) -> UpdatePlan:
+    """The JAX gates: the block falls back to 1 when it does not divide the
+    rows and the minibatch; the kernels need the fixed std and block > 1,
+    or a full batch, where the tile is min(n, 512); the Adam step goes into
+    the kernel with ``fused_adam``, no gradient clipping and a plain Adam
+    (``plain_adam``, `ops.ppo_fused.adam_takes`)."""
+    mb = min(cfg.minibatch_size, n) if cfg.minibatch_size > 0 else n
+    n_mb = max(n // mb, 1)
+    block = max(cfg.shuffle_block, 1)
+    if n % block or mb % block:
+        block = 1
+    full_batch = n_mb == 1 and mb >= n
+    tile = 0
+    if cfg.fused_update and not learn_std and (block > 1 or full_batch):
+        tile = block if block > 1 else min(n, 512)
+        if n % tile or mb % tile:
+            tile = 0
+    branch = "autograd"
+    if tile:
+        use_adam = cfg.fused_adam and cfg.max_grad_norm == 0 and plain_adam
+        branch = "fused_adam" if use_adam else "fused"
+    return UpdatePlan(n, mb, n_mb, block, full_batch, branch, tile)
+
+
+def ppo_update(
+    model: ActorCritic,
+    opt: torch.optim.Optimizer,
+    roll: Rollout,
+    bootstrap: torch.Tensor,
+    gen: Optional[torch.Generator],
+    cfg: PPOConfig,
+    perms: Optional[torch.Tensor] = None,
+) -> dict:
+    """K-epoch minibatched PPO update on the row-major batch (JAX
+    ppo.py:338-486), in place on ``model`` and ``opt``: GAE, then per epoch
+    a permutation of the ``n // block`` row blocks from ``gen``, cut into
+    ``n_mb`` minibatches of ``mb // block`` blocks (a full batch takes every
+    row in order and draws nothing). ``perms`` (K, n_mb, mb // block)
+    replaces the drawn permutations.
+
+    Each minibatch's gradient comes from the branch `update_plan` picks:
+    autograd of `ppo_loss` on the gathered rows, or kernel B3 on the block
+    ids (the rows are never gathered), each followed by optax's global-norm
+    clip when ``max_grad_norm > 0`` and ``opt.step()``; or kernel B4, which
+    takes the Adam step itself. Returns the metrics averaged over all
+    minibatches, as 0-dim tensors (no synchronization)."""
+    returns, advantages = gae_advantages(
+        roll.rewards, roll.values, roll.dones, bootstrap, cfg.gamma, cfg.gae_lambda
+    )
+
+    def flat(x):
+        return x.reshape((-1,) + x.shape[2:])
+
+    obs, actions, old_lp = flat(roll.obs), flat(roll.actions), flat(roll.logprobs)
+    rets, advs = flat(returns), flat(advantages)
+    plan = update_plan(cfg, obs.shape[0], model.learn_std or cfg.learn_std,
+                       pfr.adam_takes(opt, model))
+    n, mb, block, device = plan.n, plan.mb, plan.block, obs.device
+    kernel_kw = dict(tile=plan.tile, action_std=cfg.action_std, clip_eps=cfg.clip_eps,
+                     entropy_coef=cfg.entropy_coef)
+    if plan.tile:
+        obs = obs.contiguous()
+        aux = pfr.pack_aux(actions, old_lp, rets, advs)
+        every_block = torch.arange(n // plan.tile, dtype=torch.int32, device=device)
+        params = [p for layer in model.linears() for p in (layer.weight, layer.bias)]
+    else:
+        params = list(model.parameters())
+
+    def rows(x, idx):
+        if plan.full_batch:
+            return x
+        if block > 1:
+            return x.reshape((n // block, block) + x.shape[1:])[idx].reshape((mb,) + x.shape[1:])
+        return x[idx]
+
+    losses, mets = [], []
+    for epoch in range(cfg.k_epochs):
+        if plan.full_batch:
+            idxs = [None]
+        elif perms is not None:
+            idxs = perms[epoch].to(device=device, dtype=torch.long)
+        else:
+            perm = torch.randperm(n // block, generator=gen, device=device)
+            idxs = perm[: plan.n_mb * (mb // block)].reshape(plan.n_mb, mb // block)
+        for idx in idxs:
+            if plan.tile:
+                blocks = every_block if plan.full_batch else idx.to(torch.int32).contiguous()
+            if plan.branch == "fused_adam":
+                loss, metrics = pfr.fused_ppo_grad_adam(model, opt, obs, aux, blocks, **kernel_kw)
+            else:
+                if plan.branch == "fused":
+                    loss, metrics, grads = pfr.fused_ppo_grad(model, obs, aux, blocks, **kernel_kw)
+                else:
+                    with torch.enable_grad():
+                        loss, metrics = ppo_loss(
+                            model, rows(obs, idx), rows(actions, idx), rows(old_lp, idx),
+                            rows(rets, idx), rows(advs, idx), cfg,
+                        )
+                        grads = list(torch.autograd.grad(loss, params))
+                    loss, metrics = loss.detach(), {k: v.detach() for k, v in metrics.items()}
+                if cfg.max_grad_norm > 0:
+                    clip_by_global_norm_(grads, cfg.max_grad_norm)
+                for p, g in zip(params, grads):
+                    p.grad = g
+                opt.step()
+            losses.append(loss)
+            mets.append(metrics)
+    out = {k: torch.stack([m[k] for m in mets]).mean() for k in mets[0]}
+    out["loss"] = torch.stack(losses).mean()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Train step and loop
 # ---------------------------------------------------------------------------
+
+
+def _step_metrics(metrics: dict, rewards, dones, solved) -> dict:
+    done_f = dones.float()
+    metrics["reward_per_step"] = rewards.mean()
+    metrics["episodes"] = done_f.sum()
+    metrics["solved_frac"] = solved.float().sum() / torch.clamp(done_f.sum(), min=1.0)
+    return metrics
 
 
 def train_step_from_inputs(
@@ -341,17 +569,68 @@ def train_step_from_inputs(
     )
     aux_t = pack_aux_t(misc, returns, advs)
     metrics = ppo_update_t(model, opt, obs_t, aux_t, gen, ppo_cfg, perms)
-    done_f = dones.float()
-    metrics["reward_per_step"] = rewards.mean()
-    metrics["episodes"] = done_f.sum()
-    metrics["solved_frac"] = solved.float().sum() / torch.clamp(done_f.sum(), min=1.0)
-    return new_states, metrics
+    return new_states, _step_metrics(metrics, rewards, dones, solved)
 
 
-def _require_fused_t(model, env_cfg: EnvConfig, ppo_cfg: PPOConfig, train_cfg: TrainConfig,
-                     local_envs: int) -> None:
-    """The JAX package's `use_fused_t` gate, and the consistency guard of
-    its `make_train_step`; every other branch is not ported yet."""
+def uses_fused_rollout(env_cfg: EnvConfig, ppo_cfg: PPOConfig, train_cfg: TrainConfig) -> bool:
+    """The JAX package's `use_fused_rollout` gate."""
+    steps = train_cfg.rollout_steps
+    return (
+        train_cfg.fused_rollout
+        and rf.supports(env_cfg, ppo_cfg.learn_std, env_cfg.hist_t * 15)
+        and steps % min(16, steps) == 0
+    )
+
+
+def rowmajor_step_from_inputs(
+    model: ActorCritic,
+    opt: torch.optim.Optimizer,
+    env_states: hover.EnvState,
+    env_cfg: EnvConfig,
+    ppo_cfg: PPOConfig,
+    train_cfg: TrainConfig,
+    gen: Optional[torch.Generator] = None,
+    *,
+    noise: Optional[torch.Tensor] = None,
+    pool: Optional[torch.Tensor] = None,
+    fresh_x0: Optional[torch.Tensor] = None,
+    perms: Optional[torch.Tensor] = None,
+) -> tuple[hover.EnvState, dict]:
+    """One train step of the row-major branch (JAX ppo.py:649-663): the
+    rollout, through the rollout kernel (`rollout_from_inputs`) where the
+    JAX `use_fused_rollout` gate holds and through `rollout_batch`
+    otherwise, then `ppo_update`. Each draw comes from ``gen`` unless given:
+    the kernel's ``noise`` (T, 4, B) and packed ``pool`` (P, ROWS, B)
+    (`fused_inputs`), or `rollout_batch`'s ``noise`` (T, B, 4) and
+    ``fresh_x0``; and the update's ``perms``. Returns the new env states
+    and the step's metrics (0-dim tensors)."""
+    if uses_fused_rollout(env_cfg, ppo_cfg, train_cfg):
+        if noise is None:
+            _, noise, pool, _ = fused_inputs(model, env_states, gen, env_cfg,
+                                             train_cfg.rollout_steps, train_cfg.fused_pool)
+        new_states, obs_t, misc, bootstrap = rollout_from_inputs(
+            model, env_states, noise, pool, env_cfg
+        )
+        roll = kernel_rollout(obs_t, misc)
+    else:
+        new_states, roll, bootstrap = rollout_batch(
+            model, env_states, gen, env_cfg, train_cfg.rollout_steps, train_cfg.reset_pool,
+            noise=noise, fresh_x0=fresh_x0,
+        )
+    metrics = ppo_update(model, opt, roll, bootstrap, gen, ppo_cfg, perms)
+    return new_states, _step_metrics(metrics, roll.rewards, roll.dones, roll.solved)
+
+
+def train_branch(model: ActorCritic, opt: torch.optim.Optimizer, env_cfg: EnvConfig,
+                 ppo_cfg: PPOConfig, train_cfg: TrainConfig) -> str:
+    """The branch the JAX package's `make_train_step` takes for these
+    configs, "fused_t" or "rowmajor", after its consistency guards. Refuses
+    what is not ported yet: randomization (ROADMAP A12), bf16 products in a
+    kernel, and, for a model on the card, a shape that the JAX package sends
+    to a kernel the port's kernels do not take (hidden widths other than
+    128; obs widths other than 75, that is hist_t other than 5; B2 tiles
+    that are not a multiple of 32). The CPU runs every shape
+    through the kernels' plain versions."""
     if train_cfg.fused_rollout or ppo_cfg.fused_update:
         if float(model.action_std) != float(ppo_cfg.action_std):
             raise ValueError(
@@ -359,29 +638,41 @@ def _require_fused_t(model, env_cfg: EnvConfig, ppo_cfg: PPOConfig, train_cfg: T
                 f"ppo_cfg.action_std={ppo_cfg.action_std}: the fused kernels "
                 "take the policy std from both places and must agree"
             )
-    obs_dim = env_cfg.hist_t * 15
-    if ppo_cfg.learn_std:
-        raise NotImplementedError("a learned log_std is not ported yet (ROADMAP A6)")
-    if not (
-        train_cfg.fused_rollout
-        and rf.supports(env_cfg, ppo_cfg.learn_std, obs_dim)
-        and train_cfg.rollout_steps % min(16, train_cfg.rollout_steps) == 0
-    ):
+        if bool(model.learn_std) != bool(ppo_cfg.learn_std):
+            raise ValueError(
+                f"model.learn_std={model.learn_std} != ppo_cfg.learn_std={ppo_cfg.learn_std}"
+            )
+    if env_cfg.randomization.enabled:
+        raise NotImplementedError("domain randomization is not ported yet (ROADMAP A12)")
+    steps, b = train_cfg.rollout_steps, train_cfg.num_envs
+    fused_rollout = uses_fused_rollout(env_cfg, ppo_cfg, train_cfg)
+    tile_t = update_t_tile(ppo_cfg, steps, b)
+    fused_t = fused_rollout and ppo_cfg.fused_update and not ppo_cfg.fused_adam and tile_t > 0
+    plan = update_plan(ppo_cfg, steps * b, model.learn_std or ppo_cfg.learn_std,
+                       pfr.adam_takes(opt, model))
+    kernel_update = fused_t or plan.branch != "autograd"
+    if kernel_update and ppo_cfg.fused_compute != "f32":
         raise NotImplementedError(
-            "only the fused rollout is ported; the unfused rollout_batch (and "
-            "randomization) is ROADMAP A8/A12"
+            f"fused_compute={ppo_cfg.fused_compute!r} is not ported yet "
+            "(ROADMAP B, the rest of B1 and B2)"
         )
-    if not ppo_cfg.fused_update:
-        raise NotImplementedError("the unfused ppo_update is not ported yet (ROADMAP A8/A12)")
-    if ppo_cfg.fused_adam:
-        raise NotImplementedError("the Adam step inside the update kernel is ROADMAP B4")
-    if ppo_cfg.fused_compute != "f32":
-        raise NotImplementedError("fused_compute='bf16' is not ported yet (a later slice)")
-    if update_t_tile(ppo_cfg, train_cfg.rollout_steps, local_envs) == 0:
-        raise NotImplementedError(
-            "no env tile fits this batch; the row-major ppo_update that takes it "
-            "is ROADMAP A8/A12"
-        )
+    if next(model.parameters()).device.type == "cuda":
+        if (fused_rollout or kernel_update) and model.hidden != rf.HIDDEN:
+            raise NotImplementedError(
+                f"the port's kernels take hidden width {rf.HIDDEN}, not {model.hidden} "
+                "(ROADMAP B, the rest of B1 and B2)"
+            )
+        if kernel_update and env_cfg.hist_t * 15 != pfr.OBS:
+            raise NotImplementedError(
+                f"the port's update kernels take {pfr.OBS}-dim obs, not {env_cfg.hist_t * 15} "
+                f"(hist_t={env_cfg.hist_t}; ROADMAP B, the rest of B1 and B2)"
+            )
+        if fused_t and tile_t % CHUNK:
+            raise NotImplementedError(
+                f"the port's B2 kernel takes env tiles that are multiples of {CHUNK}, "
+                f"not {tile_t} (ROADMAP B, the rest of B1 and B2)"
+            )
+    return "fused_t" if fused_t else "rowmajor"
 
 
 def make_train_step(
@@ -391,14 +682,17 @@ def make_train_step(
     ppo_cfg: PPOConfig,
     train_cfg: TrainConfig,
 ):
-    """The fully fused train step: ``train_step(state) -> (state, metrics)``.
+    """The train step, ``train_step(state) -> (state, metrics)``, on the
+    branch `train_branch` picks: fully fused (`train_step_from_inputs`) or
+    row-major (`rowmajor_step_from_inputs`), every draw from the state's
+    generator.
 
     ``model`` and ``opt`` are checked against the configs here; the step
     takes a state that holds these same two objects (as `ppo_init` makes
     it) and updates them in place. Metrics are 0-dim tensors: ``loss``,
     ``actor_loss``, ``critic_loss``, ``entropy``, ``ratio_max``,
     ``reward_per_step``, ``episodes`` and ``solved_frac``."""
-    _require_fused_t(model, env_cfg, ppo_cfg, train_cfg, train_cfg.num_envs)
+    branch = train_branch(model, opt, env_cfg, ppo_cfg, train_cfg)
 
     def train_step(state: PPOTrainState) -> tuple[PPOTrainState, dict]:
         if state.model is not model or state.optimizer is not opt:
@@ -406,13 +700,18 @@ def make_train_step(
                 "state.model and state.optimizer must be the model and optimizer "
                 "this train step was made for"
             )
-        _, noise, pool, _ = fused_inputs(
-            model, state.env_states, state.gen, env_cfg,
-            train_cfg.rollout_steps, train_cfg.fused_pool,
-        )
-        env_states, metrics = train_step_from_inputs(
-            model, opt, state.env_states, noise, pool, env_cfg, ppo_cfg, state.gen,
-        )
+        if branch == "fused_t":
+            _, noise, pool, _ = fused_inputs(
+                model, state.env_states, state.gen, env_cfg,
+                train_cfg.rollout_steps, train_cfg.fused_pool,
+            )
+            env_states, metrics = train_step_from_inputs(
+                model, opt, state.env_states, noise, pool, env_cfg, ppo_cfg, state.gen,
+            )
+        else:
+            env_states, metrics = rowmajor_step_from_inputs(
+                model, opt, state.env_states, env_cfg, ppo_cfg, train_cfg, state.gen,
+            )
         return dataclasses.replace(
             state, env_states=env_states, update_i=state.update_i + 1
         ), metrics

@@ -130,9 +130,9 @@ class EnvConfig:
 @dataclasses.dataclass(frozen=True)
 class PPOConfig:
     """PPO hyperparameters (reference ppo.py:297-318). The fields the port
-    does not run yet (``learn_std``, ``fused_adam``, ``fused_compute="bf16"``,
-    the reshuffle modes) are kept so the config compares equal to the JAX
-    package's; `agents.ppo.make_train_step` refuses them."""
+    does not run yet (``fused_compute="bf16"``, the reshuffle modes) are
+    kept so the config compares equal to the JAX package's;
+    `agents.ppo.make_train_step` refuses bf16 products."""
 
     lr: float = 5e-4
     gamma: float = 0.99
@@ -150,11 +150,12 @@ class PPOConfig:
     # Minibatches permute contiguous blocks of this many rows of the
     # flattened (T, B) batch (different envs at one timestep).
     shuffle_block: int = 128
-    # The fused update kernel (ops/ppo_fused_t.py on the fully fused path).
+    # The fused update kernels (ops/ppo_fused_t.py on the fully fused path,
+    # ops/ppo_fused.py in the row-major ppo_update).
     fused_update: bool = False
     # Product operand type inside the fused update kernel ("f32" or "bf16").
     fused_compute: str = "f32"
-    # The Adam step inside the update kernel (kernel B4, not ported yet).
+    # The Adam step inside the row-major update kernel (kernel B4).
     fused_adam: bool = False
     reshuffle_per_update: bool = False
     reshuffle_per_epoch: bool = False
@@ -184,7 +185,7 @@ class TrainConfig:
     eval_every: int = 5
     eval_episodes: int = 40
     seed: int = 0
-    # Fresh-episode pool of the unfused rollout (not ported yet).
+    # Fresh-episode pool of the unfused rollout (0: a fresh reset per done).
     reset_pool: int = 0
     # The whole-rollout kernel (ops/rollout_fused.py) and the depth of its
     # fresh-episode pool for auto-reset.

@@ -3,8 +3,9 @@
 Counterpart of `envs/hover.py` in the JAX package. The env is a pair of
 functions on a batch of envs,
 
-    reset(gen, cfg, n | det_state)  -> EnvState
-    step(state, action, cfg)        -> (EnvState, StepOut)
+    reset(gen, cfg, n | det_state)             -> EnvState
+    step(state, action, cfg)                   -> (EnvState, StepOut)
+    step_autoreset(state, action, cfg, fresh)  -> (EnvState, StepOut)
 
 with every per-env quantity a tensor whose first axis is the env. Randomness
 comes from an explicit ``torch.Generator``; the JAX package's per-env PRNG
@@ -242,3 +243,49 @@ def reset(
         falses = torch.zeros_like(state.done)
         state = state.replace(done=falses, solved=falses)
     return state
+
+
+def take_envs(state: EnvState, idx) -> EnvState:
+    """The envs ``idx`` (an index tensor or a slice) of a batched state."""
+
+    def take(x):
+        if dataclasses.is_dataclass(x):
+            return type(x)(**{f.name: take(getattr(x, f.name)) for f in dataclasses.fields(x)})
+        return x[idx]
+
+    return take(state)
+
+
+def where_done(done: torch.Tensor, fresh: EnvState, stepped: EnvState) -> EnvState:
+    """Per env, ``fresh`` where ``done`` (B,) else ``stepped``, field by field
+    (the domain's fields too)."""
+
+    def pick(a, b):
+        if dataclasses.is_dataclass(b):
+            return type(b)(**{f.name: pick(getattr(a, f.name), getattr(b, f.name))
+                              for f in dataclasses.fields(b)})
+        return torch.where(done.reshape(done.shape + (1,) * (b.dim() - 1)), a, b)
+
+    return pick(fresh, stepped)
+
+
+def step_autoreset(
+    state: EnvState,
+    action: torch.Tensor,
+    cfg: EnvConfig,
+    fresh: Optional[EnvState] = None,
+    gen: Optional[torch.Generator] = None,
+) -> tuple[EnvState, StepOut]:
+    """Step; where the episode ends, start a fresh one at once (JAX
+    hover.py:283). The returned `StepOut` reports the terminal transition
+    (reward and done of the finished episode); the carried state is the new
+    episode's.
+
+    ``fresh`` is a batch of B freshly reset states (`reset` with warmup);
+    without it one is drawn from ``gen``. As `jax.vmap` does, every env gets
+    a fresh state and a `torch.where` keeps it where done, so the step never
+    waits on the host."""
+    stepped, out = step(state, action, cfg)
+    if fresh is None:
+        fresh = reset(gen, cfg, n=state.x.shape[0], dtype=state.x.dtype)
+    return where_done(out.done, fresh, stepped), out

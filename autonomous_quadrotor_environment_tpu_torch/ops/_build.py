@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
 Each ``csrc/<name>.cu`` has a plain C interface and includes no PyTorch
-header, so nvcc builds it in seconds. The shared library goes into
-``build/`` inside the package, named by a hash of the source, at first use;
+header (only the shared ``csrc/*.cuh``), so nvcc builds it in seconds. The
+shared library goes into ``build/`` inside the package, named by a hash of
+the source and the headers, at first use;
 nvcc's ``-Xptxas -v`` report (registers, shared memory, spills) is kept
 beside it. Nothing is built when a module is imported.
 """
@@ -26,13 +27,21 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-# ctypes signature of each kernel's C entry point: every pointer and the
-# stream as c_void_p, ints as c_int, floats as c_float; returns the
-# cudaError_t of the launch.
+# ctypes signatures of each library's C entry points: every pointer and the
+# stream as c_void_p, ints as c_int, floats as c_float; each returns the
+# cudaError_t of its launches.
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# obs, aux, perm, pack, work, out; n, tile, n_blocks, G; the 5 loss constants
+_ROWS = [_P] * 6 + [_I] * 4 + [_F] * 5
 SIGNATURES = {
-    "rollout_fused": [_P] * 3 + [_P] * 12 + [_P] * 3 + [_I] * 3 + [_P, _F, _F, _I, _P],
-    "ppo_fused_t": [_P] * 6 + [_I] * 5 + [_F] * 5 + [_I, _P],
+    "rollout_fused": {
+        "rollout_fused": [_P] * 3 + [_P] * 12 + [_P] * 3 + [_I] * 3 + [_P, _F, _F, _I, _P],
+    },
+    "ppo_fused_t": {"ppo_fused_t": [_P] * 6 + [_I] * 5 + [_F] * 5 + [_I, _P]},
+    "ppo_fused": {
+        "ppo_fused": _ROWS + [_I, _P],
+        "ppo_fused_adam": _ROWS + [_P] + [_F] * 6 + [_I, _P],  # + the 36 leaves, Adam consts
+    },
 }
 
 
@@ -48,8 +57,12 @@ def build(name: str) -> dict:
     is already in ``build/``. Returns the library path, nvcc's wall seconds
     (0 when reused) and its output."""
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC, f) for f in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:16]
     os.makedirs(BUILD_DIR, exist_ok=True)
     lib = os.path.join(BUILD_DIR, f"{name}-{digest}.so")
     log = lib[:-3] + ".log"
@@ -73,11 +86,12 @@ def build(name: str) -> dict:
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load kernel library ``name``, with the argtypes
-    of its entry point and of its ``cuda_error_string`` set."""
+    of its entry points and of its ``cuda_error_string`` set."""
     lib = ctypes.CDLL(build(name)["path"])
-    fn = getattr(lib, name)
-    fn.argtypes = SIGNATURES[name]
-    fn.restype = ctypes.c_int
+    for entry, argtypes in SIGNATURES[name].items():
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     lib.cuda_error_string.argtypes = [ctypes.c_int]
     lib.cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,0 +1,193 @@
+// PPO minibatch loss and all 12 ActorCritic weight gradients, for Hopper
+// (sm_90a), on the row-major batch; and the same followed by the Adam step.
+//
+// Replaces two TPU kernels of the JAX package's `ops/ppo_fused.py`:
+// * `fused_ppo_grad` (Pallas body `_kernel` / `_body`): what the port's
+//   `ops/ppo_fused.py:ppo_grad_plain` computes with autograd;
+// * `fused_ppo_grad_adam` (`_kernel_adam`): the same gradients, then one
+//   Adam step on them, as `ppo_grad_adam_plain` computes it. The TPU kernel
+//   runs the step at its last grid step on the resident accumulators; here
+//   it runs in the fixed-order reduction pass, which holds each finished
+//   gradient entry anyway: it reads the parameter and the two moments of
+//   `torch.optim.Adam`'s state and writes all three back in place, with
+//   torch's own formula (m lerped towards g by 1 - b1, v = b2 v + (1 - b2)
+//   g^2, p += -lr / c1 * m / (sqrt(v) / sqrt(c2) + eps)), the bias
+//   corrections c1, c2 from the host.
+//
+// The chunk's forward and backward, the per-head CTAs with their shared
+// accumulators and the fixed-order reduction are B2's (`ppo_grad.cuh`,
+// where the design and the bound are written down). What is this file's own
+// is the loader. The minibatch is the row blocks `perm` of `tile` rows each
+// and is never gathered: minibatch row m is row
+// perm[m / tile] * tile + m % tile of the row-major obs (n, 75) and aux
+// (n, 8). A chunk is 32 consecutive minibatch rows; the 32 source rows are
+// resolved once per chunk into shared memory, then the chunk's 32 x 75
+// floats are staged with neighbouring threads on neighbouring floats of a
+// row (a row is 300 contiguous bytes), so the loads coalesce. Any tile goes:
+// a chunk may span blocks, and the last chunk is padded with rows that add
+// nothing.
+
+#include "ppo_grad.cuh"
+
+using namespace ppo_grad;
+
+namespace {
+
+constexpr int S_ROWS = SMEM_FLOATS;  // [CHUNK] int source rows of the chunk
+constexpr int SMEM_BYTES = (SMEM_FLOATS + CHUNK) * (int)sizeof(float);
+
+struct Params {
+  const float* obs;    // (n, OBS) row-major
+  const float* aux;    // (n, 8): action(4), old logprob sum, return, advantage, 0
+  const int* perm;     // (n_blocks,) row-block ids of this minibatch
+  const float* pack;   // (2, PACK)
+  float* work;         // (2, G, ACCS)
+  int n_ids, tile, mb, G;
+  LossConsts c;
+};
+
+__global__ void __launch_bounds__(THREADS, 1) ppo_grad_rows_kernel(Params P) {
+  extern __shared__ float4 smem4[];
+  float* S = reinterpret_cast<float*>(smem4);
+  float* acc = S + S_ACC;
+  float* X = S + S_X;
+  float* AUX = S + S_AUX;
+  int* ROWS = reinterpret_cast<int*>(S + S_ROWS);
+
+  const int head = blockIdx.y;  // 0 actor, 1 critic
+  const int tid = threadIdx.x;
+  const float* W = P.pack + head * PACK;
+
+  for (int e = tid; e < ACC; e += THREADS) acc[e] = 0.f;
+  float actor_sum = 0.f, critic_sum = 0.f, rmax = 0.f;  // kept by thread 0
+
+  const int n_chunks = (P.mb + CHUNK - 1) / CHUNK;
+  for (int q = blockIdx.x; q < n_chunks; q += P.G) {
+    const int valid = min(CHUNK, P.mb - q * CHUNK);
+    __syncthreads();  // the previous chunk's readers of X, AUX and ROWS are done
+    if (tid < CHUNK) {
+      // -1: a padding row (zeros); -2: a bad block id, whose row poisons
+      // the loss and the gradients with NaN.
+      int row = -1;
+      if (tid < valid) {
+        const int m = q * CHUNK + tid;
+        const int p = P.perm[m / P.tile];
+        row = (p >= 0 && p < P.n_ids) ? p * P.tile + m % P.tile : -2;
+      }
+      ROWS[tid] = row;
+    }
+    __syncthreads();
+    for (int e = tid; e < CHUNK * OBS; e += THREADS) {
+      const int r = e / OBS, f = e - r * OBS;
+      const int row = ROWS[r];
+      X[r * OBS_P + f] = row >= 0 ? __ldg(P.obs + (size_t)row * OBS + f) : 0.f;
+    }
+    if (tid < CHUNK) X[tid * OBS_P + OBS] = 0.f;
+    {
+      const int r = tid >> 3, f = tid & 7;  // 256 = 32 rows x 8
+      const int row = ROWS[r];
+      AUX[f * CHUNK + r] = row >= 0 ? __ldg(P.aux + (size_t)row * 8 + f)
+                                    : (row == -1 ? 0.f : nanf(""));
+    }
+    __syncthreads();
+
+    chunk_grad(W, head, S, valid, P.c, actor_sum, critic_sum, rmax);
+  }
+  __syncthreads();
+  write_partial(S, P.work, P.G, head, actor_sum, critic_sum, rmax);
+}
+
+// The 12 parameter leaves and their two Adam moments, flax leaf order,
+// each laid out as the gradient's leaf in the flat output.
+struct AdamLeaves {
+  float* p[12];
+  float* m[12];
+  float* v[12];
+};
+
+struct AdamConsts {
+  float one_minus_b1, b2, one_minus_b2, neg_step_size, bc2_sqrt, eps;
+};
+
+// reduce_kernel's sums, with the Adam step applied to each finished gradient
+// entry instead of writing it out; the metrics go to metrics[0..2].
+__global__ void reduce_adam_kernel(const float* __restrict__ work, float* __restrict__ metrics,
+                                   int G, AdamLeaves L, AdamConsts a) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= N_OUT) return;
+  if (e >= O_GRADS) {
+    metrics[e - O_GRADS] = reduce_metric(work, G, e - O_GRADS);
+    return;
+  }
+  const Entry at = locate(e);
+  const float g = sum_partials(work, G, at.head, at.src);
+  float* pp = L.p[at.leaf] + at.off;
+  float* mp = L.m[at.leaf] + at.off;
+  float* vp = L.v[at.leaf] + at.off;
+  const float m = *mp + a.one_minus_b1 * (g - *mp);
+  const float v = *vp * a.b2 + a.one_minus_b2 * (g * g);
+  *mp = m;
+  *vp = v;
+  *pp = *pp + a.neg_step_size * (m / (sqrtf(v) / a.bc2_sqrt + a.eps));
+}
+
+cudaError_t launch_grad(const Params& P, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(
+      ppo_grad_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  ppo_grad_rows_kernel<<<dim3(P.G, 2), THREADS, SMEM_BYTES, s>>>(P);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// B3: the gradient kernel and the reduction into `out` (N_OUT floats) on
+// `stream`. Returns cudaGetLastError(): a launch the card refuses never runs
+// and is reported only here.
+int ppo_fused(const float* obs, const float* aux, const int* perm, const float* pack,
+              float* work, float* out, int n, int tile, int n_blocks, int G,
+              float inv_std, float lp_const, float lo, float hi, float inv_n,
+              int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  Params P{obs, aux, perm, pack, work, n / tile, tile, n_blocks * tile, G,
+           LossConsts{inv_std, lp_const, lo, hi, inv_n}};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = launch_grad(P, s);
+  if (err != cudaSuccess) return (int)err;
+  reduce_kernel<<<(N_OUT + 255) / 256, 256, 0, s>>>(work, out, G);
+  return (int)cudaGetLastError();
+}
+
+// B4: the gradient kernel, then the reduction with the Adam step on the 36
+// leaves in `leaves` (params, exp_avg, exp_avg_sq, each in flax leaf order),
+// in place; the three metrics into `metrics`.
+int ppo_fused_adam(const float* obs, const float* aux, const int* perm, const float* pack,
+                   float* work, float* metrics, int n, int tile, int n_blocks, int G,
+                   float inv_std, float lp_const, float lo, float hi, float inv_n,
+                   void* const* leaves, float one_minus_b1, float b2, float one_minus_b2,
+                   float neg_step_size, float bc2_sqrt, float eps, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  Params P{obs, aux, perm, pack, work, n / tile, tile, n_blocks * tile, G,
+           LossConsts{inv_std, lp_const, lo, hi, inv_n}};
+  AdamLeaves L;
+  for (int k = 0; k < 12; ++k) {
+    L.p[k] = static_cast<float*>(leaves[k]);
+    L.m[k] = static_cast<float*>(leaves[12 + k]);
+    L.v[k] = static_cast<float*>(leaves[24 + k]);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = launch_grad(P, s);
+  if (err != cudaSuccess) return (int)err;
+  reduce_adam_kernel<<<(N_OUT + 255) / 256, 256, 0, s>>>(
+      work, metrics, G, L, AdamConsts{one_minus_b1, b2, one_minus_b2, neg_step_size, bc2_sqrt, eps});
+  return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory of the gradient kernel in bytes.
+int ppo_fused_smem_bytes() { return SMEM_BYTES; }
+
+}  // extern "C"

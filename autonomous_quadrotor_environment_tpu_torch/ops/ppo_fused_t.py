@@ -88,6 +88,16 @@ def ppo_grad_t_plain(model_or_leaves, obs_t, aux_t, perm, *, tile: int,
     kernel's (and `lax.clamp`'s) is strict.
 
     Returns ``(loss, metrics, grads)`` like `fused_ppo_grad_t`."""
+    return grads_on_rows(model_or_leaves, _gather_rows(obs_t, perm, tile),
+                         _gather_rows(aux_t, perm, tile), action_std=action_std,
+                         clip_eps=clip_eps, entropy_coef=entropy_coef)
+
+
+def grads_on_rows(model_or_leaves, obs, aux, *, action_std: float, clip_eps: float,
+                  entropy_coef: float):
+    """`torch.autograd` of the port's `ppo_loss` on gathered rows, obs
+    (mb, 75) and aux (mb, 8): the plain versions' arithmetic. Returns
+    ``(loss, metrics, grads)``, detached, the gradients in leaf order."""
     from ..agents.networks import ActorCritic
     from ..agents.ppo import ppo_loss
     from ..config import PPOConfig
@@ -96,8 +106,6 @@ def ppo_grad_t_plain(model_or_leaves, obs_t, aux_t, perm, *, tile: int,
         model = ActorCritic.from_leaves(model_or_leaves, action_std)
     else:
         model = model_or_leaves
-    obs = _gather_rows(obs_t, perm, tile)
-    aux = _gather_rows(aux_t, perm, tile)
     cfg = PPOConfig(clip_eps=clip_eps, entropy_coef=entropy_coef, action_std=action_std)
     params = [p for layer in model.linears() for p in (layer.weight, layer.bias)]
     with torch.enable_grad():
@@ -135,53 +143,103 @@ def _pack(leaves: list[torch.Tensor]) -> torch.Tensor:
     return torch.stack(heads).contiguous()
 
 
-def _launch(leaves, obs_t, aux_t, perm, tile, action_std, clip_eps):
-    device = obs_t.device
-    steps, _, b = obs_t.shape
-    _check("obs_t", obs_t, (steps, OBS, b), device)
-    _check("aux_t", aux_t, (steps, 8, b), device)
-    if perm.dim() != 1 or perm.numel() < 1:
-        raise ValueError("perm must be a non-empty 1-D tensor of block ids")
-    _check("perm", perm, (perm.shape[0],), device, torch.int32)
+def check_leaves(leaves: list, device: torch.device) -> None:
+    """Raise unless ``leaves`` are the 12 float32 hidden-128 leaves on
+    ``device`` that the gradient kernels take."""
+    if len(leaves) != 12:
+        raise ValueError("want the 12 ActorCritic leaves in flax leaf order")
     for i, (w, shape) in enumerate(zip(leaves, _leaf_shapes(HIDDEN))):
         if w.device != device or w.dtype != torch.float32 or w.numel() != math.prod(shape):
             raise ValueError(
                 f"leaf {i}: the kernel takes hidden width {HIDDEN}: want float32 "
                 f"{shape} on {device}, got {w.dtype} {tuple(w.shape)} on {w.device}"
             )
-    n_blocks = perm.shape[0]
-    mb = n_blocks * tile
-    lib = _build.load("ppo_fused_t")
+
+
+def check_perm(perm: torch.Tensor, device: torch.device) -> None:
+    if perm.dim() != 1 or perm.numel() < 1:
+        raise ValueError("perm must be a non-empty 1-D tensor of block ids")
+    _check("perm", perm, (perm.shape[0],), device, torch.int32)
+
+
+def launch_buffers(lib, leaves: list, device: torch.device, n_chunks: int):
+    """What a gradient launch needs beside its inputs: the (2, PACK) weight
+    pack, the CTAs per head (about half the SMs, at most one per chunk) and
+    their (2, G, partial) workspace."""
     pack = _pack(leaves)
-    if pack.shape[1] != lib.ppo_fused_t_pack_floats():
+    if pack.shape[1] != lib.ppo_grad_pack_floats():
         raise RuntimeError("weight pack size disagrees with the kernel's")
-    n_chunks = n_blocks * (tile // CHUNK)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    ctas = max(1, min(sms // 2, n_chunks))  # CTAs per head
-    work = torch.empty(2 * ctas * lib.ppo_fused_t_partial_floats(), dtype=torch.float32,
+    ctas = max(1, min(sms // 2, n_chunks))
+    work = torch.empty(2 * ctas * lib.ppo_grad_partial_floats(), dtype=torch.float32,
                        device=device)
-    out = torch.empty(lib.ppo_fused_t_out_floats(), dtype=torch.float32, device=device)
+    return pack, ctas, work
+
+
+def loss_consts(action_std: float, clip_eps: float, mb: int) -> tuple:
+    """The kernels' loss constants: 1/std, the logprob's constant, the clip
+    band's bounds and 1/mb."""
     log_std = math.log(action_std)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.ppo_fused_t(
-            obs_t.data_ptr(), aux_t.data_ptr(), perm.data_ptr(), pack.data_ptr(),
-            work.data_ptr(), out.data_ptr(),
-            steps, b, tile, n_blocks, ctas,
-            1.0 / action_std, ACT * (log_std + 0.5 * _LOG_2PI),
-            1.0 - clip_eps, 1.0 + clip_eps, 1.0 / mb,
-            device.index, stream,
-        )
+    return (1.0 / action_std, ACT * (log_std + 0.5 * _LOG_2PI),
+            1.0 - clip_eps, 1.0 + clip_eps, 1.0 / mb)
+
+
+def raise_on_error(lib, err: int, name: str) -> None:
     if err != 0:
         msg = lib.cuda_error_string(err).decode()
-        raise RuntimeError(f"ppo_fused_t kernel launch failed: error {err} ({msg})")
-    fused_ppo_grad_t.launches += 1
+        raise RuntimeError(f"{name} kernel launch failed: error {err} ({msg})")
+
+
+def split_out(out: torch.Tensor):
+    """The kernels' flat output -> the 12 gradients (views, leaf order,
+    kernels (out, in), biases (out,)) and the actor sum, critic sum and
+    ratio max."""
     grads, off = [], 0
     for shape in _leaf_shapes(HIDDEN):
         size = math.prod(shape)
         grads.append(out[off:off + size].view(shape))
         off += size
-    actor_sum, critic_sum, rmax = out[off], out[off + 1], out[off + 2]
+    return grads, out[off], out[off + 1], out[off + 2]
+
+
+def loss_and_metrics(actor_sum, critic_sum, rmax, mb: int, action_std: float,
+                     entropy_coef: float):
+    """The loss and metrics from the kernels' sums; entropy is the fixed
+    std's constant, added here as the JAX wrappers add it."""
+    entropy = entropy_const(action_std)
+    loss = (actor_sum + critic_sum) / mb - entropy_coef * entropy
+    metrics = {
+        "actor_loss": actor_sum / mb,
+        "critic_loss": critic_sum / mb,
+        "entropy": torch.full((), entropy, dtype=torch.float32, device=actor_sum.device),
+        "ratio_max": rmax,
+    }
+    return loss, metrics
+
+
+def _launch(leaves, obs_t, aux_t, perm, tile, action_std, clip_eps):
+    device = obs_t.device
+    steps, _, b = obs_t.shape
+    _check("obs_t", obs_t, (steps, OBS, b), device)
+    _check("aux_t", aux_t, (steps, 8, b), device)
+    check_perm(perm, device)
+    check_leaves(leaves, device)
+    n_blocks = perm.shape[0]
+    mb = n_blocks * tile
+    lib = _build.load("ppo_fused_t")
+    pack, ctas, work = launch_buffers(lib, leaves, device, n_blocks * (tile // CHUNK))
+    out = torch.empty(lib.ppo_grad_out_floats(), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.ppo_fused_t(
+            obs_t.data_ptr(), aux_t.data_ptr(), perm.data_ptr(), pack.data_ptr(),
+            work.data_ptr(), out.data_ptr(),
+            steps, b, tile, n_blocks, ctas, *loss_consts(action_std, clip_eps, mb),
+            device.index, stream,
+        )
+    raise_on_error(lib, err, "ppo_fused_t")
+    fused_ppo_grad_t.launches += 1
+    grads, actor_sum, critic_sum, rmax = split_out(out)
     return actor_sum, critic_sum, rmax, mb, grads
 
 
@@ -215,14 +273,7 @@ def fused_ppo_grad_t(model_or_leaves, obs_t: torch.Tensor, aux_t: torch.Tensor,
     actor_sum, critic_sum, rmax, mb, grads = _launch(
         leaves, obs_t, aux_t, perm, tile, action_std, clip_eps
     )
-    entropy = entropy_const(action_std)
-    loss = (actor_sum + critic_sum) / mb - entropy_coef * entropy
-    metrics = {
-        "actor_loss": actor_sum / mb,
-        "critic_loss": critic_sum / mb,
-        "entropy": torch.full((), entropy, dtype=torch.float32, device=obs_t.device),
-        "ratio_max": rmax,
-    }
+    loss, metrics = loss_and_metrics(actor_sum, critic_sum, rmax, mb, action_std, entropy_coef)
     return loss, metrics, grads
 
 

@@ -7,9 +7,9 @@ PyTorch built for CUDA:
 
 It imports nothing of JAX. Each phase prints one flushed JSON line:
 
-1. build: nvcc builds both kernels, `ops/csrc/rollout_fused.cu` and
-   `ops/csrc/ppo_fused_t.cu`, in parallel; ptxas's registers and spills,
-   and each kernel's shared memory.
+1. build: nvcc builds the three kernel sources, `ops/csrc/rollout_fused.cu`,
+   `ops/csrc/ppo_fused_t.cu` and `ops/csrc/ppo_fused.cu`, in parallel;
+   ptxas's registers and spills, and each library's shared memory.
 2. kernel_vs_plain: the rollout kernel against its plain PyTorch version on
    the same CUDA tensors (B=1024, T=32, P=4, seeded weights and noise), at
    the default bounding box and at bb_scale=0.15, where resets and pool
@@ -19,21 +19,40 @@ It imports nothing of JAX. Each phase prints one flushed JSON line:
    (T=8, B=1024, tile 128, a shuffled subset of blocks) and one
    quarter-batch minibatch at the bench shape of the solved controller's
    rollout after GAE; the kernel's time, the plain version's and the bound.
-4. slice: the shipped solved controller through `rollout_batch_fused` at
+4. grad_vs_plain: the row-major PPO gradient kernel (B3) and the same with
+   the Adam step (B4) against their plain versions: seeded small shapes at
+   tiles 8, 40 and 128 (chunks span blocks, the last one padded) and one
+   quarter-batch minibatch (512 blocks of 1024 rows) of the solved
+   controller's bench-shape rollout made row-major (where train_rowmajor
+   (b) runs B4), and the full batch of the trainer's first rollout (131,072
+   rows, tile 128, every block: where train_rowmajor (a) runs B3 and
+   learn_rowmajor B4); B4 from a warmed Adam state, and from an empty one
+   with its sign flips counted; times and bounds at both large shapes.
+5. slice: the shipped solved controller through `rollout_batch_fused` at
    the bench shape (B=8192 envs, T=256 steps, P=4) with the launch counter
    set to 0 just before and read just after; then the kernel against the
    plain version at that shape, and the times of both.
-5. fly: 256 deterministic episodes of the solved controller (zero noise,
+6. fly: 256 deterministic episodes of the solved controller (zero noise,
    T=1000 steps); each env's first episode must be solved in >= 90% of envs.
-6. train: the fully fused PPO train step at bench.py's configuration
+7. train: the fully fused PPO train step at bench.py's configuration
    (8192 x 256, K=10, quarter-batch minibatches, tile 1024) through
    `ppo_init` and `make_train_step`, 3 steps, each with both launch counters
    set to 0 just before and read just after (1 rollout and 40 gradient
    launches per step); where the step's time goes.
-7. learn: training from scratch at the trainer's defaults (1024 x 128,
-   K=10, full batch, lr 5e-4) with a deterministic 256-episode eval every
-   100 updates, until eval_solved >= 0.8; it fails if no eval reaches it by
-   update 600.
+8. train_rowmajor: the row-major train step, 3 steps each with every
+   launch counter set to 0 just before and read just after, at (a) the
+   trainer's defaults with fused_update (1024 x 128, per-step auto-reset,
+   full batch, tile 128: 10 B3 launches a step), where the rollout and the
+   update are also timed apart, and the trainer's own defaults (autograd
+   update) are timed per update; (b) bench.py's shape with the rollout
+   kernel and fused_adam (1 B1 and 40 B4 launches a step).
+9. learn: training from scratch at the trainer's defaults (1024 x 128,
+   K=10, full batch, lr 5e-4) on the fully fused path with a deterministic
+   256-episode eval every 100 updates, until eval_solved >= 0.8; it fails if
+   no eval reaches it by update 600.
+10. learn_rowmajor: the same from scratch with the rollout kernel and the
+   Adam step inside B4 (1 B1 and 10 B4 launches an update), evaluated at
+   update 400 and every 100 after, to the same bar.
 
 Then the kernels line, the card's name and power limit from nvidia-smi, and
 as the last line {"ok": true, "device": {...}}. Any failure raises, exits
@@ -42,6 +61,8 @@ non-zero and prints no ok line; so does a machine without a CUDA card.
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
 import math
 import re
@@ -63,6 +84,7 @@ from autonomous_quadrotor_environment_tpu_torch.config import EnvConfig, PPOConf
 from autonomous_quadrotor_environment_tpu_torch.envs import hover
 from autonomous_quadrotor_environment_tpu_torch.fixtures import load_solved_controller
 from autonomous_quadrotor_environment_tpu_torch.ops import _build
+from autonomous_quadrotor_environment_tpu_torch.ops import ppo_fused as pr
 from autonomous_quadrotor_environment_tpu_torch.ops import ppo_fused_t as pf
 from autonomous_quadrotor_environment_tpu_torch.ops import rollout_fused as rf
 
@@ -79,12 +101,32 @@ BENCH_K, BENCH_TILE = 10, 1024            # bench.py's epochs and shuffle block
 LEARN_B, LEARN_T, LEARN_LR = 1024, 128, 5e-4
 LEARN_EVAL_EVERY, LEARN_MAX_UPDATES, LEARN_EPISODES, LEARN_SOLVED = 100, 600, 256, 0.8
 LEARN_SEED = 0  # fixed before the first run on the card
+LEARN_ROWMAJOR_FIRST_EVAL = 400  # the row-major learn phase evaluates from here on
+LIBRARIES = ("rollout_fused", "ppo_fused_t", "ppo_fused")  # one nvcc each
+_CSRC = "autonomous_quadrotor_environment_tpu_torch/ops/csrc/"
+_TPU = "autonomous_quadrotor_environment_tpu/ops/"
 KERNELS = {
-    "rollout_fused": ("autonomous_quadrotor_environment_tpu_torch/ops/csrc/rollout_fused.cu",
-                      "autonomous_quadrotor_environment_tpu/ops/rollout_fused.py:624"),
-    "ppo_fused_t": ("autonomous_quadrotor_environment_tpu_torch/ops/csrc/ppo_fused_t.cu",
-                    "autonomous_quadrotor_environment_tpu/ops/ppo_fused_t.py:211"),
+    "rollout_fused": (_CSRC + "rollout_fused.cu", _TPU + "rollout_fused.py:624"),
+    "ppo_fused_t": (_CSRC + "ppo_fused_t.cu", _TPU + "ppo_fused_t.py:211"),
+    "ppo_fused": (_CSRC + "ppo_fused.cu", _TPU + "ppo_fused.py:331"),
+    "ppo_fused_adam": (_CSRC + "ppo_fused.cu", _TPU + "ppo_fused.py:452"),
 }
+# Each kernel's wrapper, whose `.launches` counts its launches.
+COUNTERS = {
+    "rollout_fused": rf.fused_rollout,
+    "ppo_fused_t": pf.fused_ppo_grad_t,
+    "ppo_fused": pr.fused_ppo_grad,
+    "ppo_fused_adam": pr.fused_ppo_grad_adam,
+}
+
+
+def zero_counters() -> None:
+    for fn in COUNTERS.values():
+        fn.launches = 0
+
+
+def read_counters() -> dict:
+    return {name: fn.launches for name, fn in COUNTERS.items()}
 
 
 def emit(obj: dict) -> None:
@@ -200,8 +242,8 @@ def _ptxas(name: str, info: dict) -> dict:
 def phase_build() -> dict:
     """One nvcc per kernel source, all started together."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        infos = dict(zip(KERNELS, pool.map(_build.build, KERNELS)))
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        infos = dict(zip(LIBRARIES, pool.map(_build.build, LIBRARIES)))
     out = {"phase": "build", "seconds": time.perf_counter() - t0,
            "kernels": {name: _ptxas(name, info) for name, info in infos.items()}}
     emit(out)
@@ -312,54 +354,106 @@ def grad_flops_per_row(hidden: int) -> int:
     return total
 
 
-def grad_bound(rows: int, n_blocks: int, hidden: int, n_params: int) -> tuple[float, str, float, float]:
+def grad_bound(rows: int, n_blocks: int, hidden: int, n_params: int,
+               adam: bool = False) -> tuple[float, str, float, float]:
     """The least time the card could take for one gradient call: the larger
     of the products' f32 FLOP (`grad_flops_per_row`) over the f32 peak, and
     the bytes that must move (the rows' obs and aux read once, the block ids
     and weights read once, the gradients written once) over the memory
-    rate."""
-    flops = float(rows) * grad_flops_per_row(hidden)
-    bytes_ = 4.0 * (rows * (pf.OBS + 8) + n_blocks + 2 * n_params)
+    rate. With ``adam`` (B4) the gradients are not written; the two moments
+    are read and they and the weights written instead, and the step adds
+    about 12 FLOP per parameter."""
+    flops = float(rows) * grad_flops_per_row(hidden) + (12.0 * n_params if adam else 0.0)
+    bytes_ = 4.0 * (rows * (pf.OBS + 8) + n_blocks + (6 if adam else 2) * n_params)
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, bytes_ / PEAK_HBM_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, bytes_
 
 
-def grad_compare(model, obs_t, aux_t, blocks, tile: int) -> dict:
-    """The gradient kernel against its plain version on the same tensors:
-    loss and metrics within rtol 1e-4, each gradient leaf within a relative
-    Frobenius error of 1e-4 (sums over up to 5e5 rows cancel, so an
-    elementwise rtol is the wrong yardstick at that size). A second launch
-    must give the same bits: the reduction runs in a fixed order."""
-    kw = dict(tile=tile, action_std=ACTION_STD, clip_eps=CLIP_EPS, entropy_coef=ENTROPY_COEF)
-    loss, met, grads = pf.fused_ppo_grad_t(model, obs_t, aux_t, blocks, **kw)
-    loss2, _, grads2 = pf.fused_ppo_grad_t(model, obs_t, aux_t, blocks, **kw)
-    sync()
-    lp, mp, gp = pf.ppo_grad_t_plain(model, obs_t, aux_t, blocks, **kw)
-    sync()
-    deterministic = bool(torch.equal(loss, loss2)) and all(
-        torch.equal(a, b) for a, b in zip(grads, grads2))
+def metric_errors(loss, met, lp, mp, aux) -> tuple[dict, dict]:
+    """The loss's and each metric's error against the plain version's:
+    relative to the plain value (``rel``), and as held to 1e-4 (``held``):
+    the same, except that ``actor_loss`` is taken relative to the larger of
+    its value and the mean |advantage| of ``aux`` (column 6 of (n, 8) rows,
+    or of (T, 8, B)). It is the mean of the terms -min(r A, clip(r) A),
+    whose size is |A| at ratios near 1; on a full batch at ratio 1 (the
+    first epoch of a step) it is minus the mean of the batch-normalized
+    advantages, zero up to rounding, and its error relative to itself
+    compares two rounding residues. The leaves are held to their norm in
+    the same way (`rel_fro`)."""
     rel = {"loss": abs(loss.item() - lp.item()) / max(abs(lp.item()), 1e-30)}
     for k in mp:
         rel[k] = abs(met[k].item() - mp[k].item()) / max(abs(mp[k].item()), 1e-30)
+    held = dict(rel)
+    terms = aux[:, 6].abs().mean().item()
+    held["actor_loss"] = (abs(met["actor_loss"].item() - mp["actor_loss"].item())
+                          / max(abs(mp["actor_loss"].item()), terms, 1e-30))
+    return rel, held
+
+
+def grad_compare(model, obs_t, aux_t, blocks, tile: int, kernel=None, plain=None,
+                 phase: str = "grad_t_vs_plain") -> dict:
+    """A gradient kernel (B2 by default, or ``kernel`` with its ``plain``
+    version) against its plain version on the same tensors: loss and
+    metrics within rtol 1e-4 (as `metric_errors` holds them), each gradient
+    leaf within a relative Frobenius error of 1e-4 (sums over up to 5e5
+    rows cancel, so an elementwise rtol
+    is the wrong yardstick at that size). A second launch must give the same
+    bits: the reduction runs in a fixed order."""
+    kernel = kernel or pf.fused_ppo_grad_t
+    plain = plain or pf.ppo_grad_t_plain
+    kw = dict(tile=tile, action_std=ACTION_STD, clip_eps=CLIP_EPS, entropy_coef=ENTROPY_COEF)
+    loss, met, grads = kernel(model, obs_t, aux_t, blocks, **kw)
+    loss2, _, grads2 = kernel(model, obs_t, aux_t, blocks, **kw)
+    sync()
+    lp, mp, gp = plain(model, obs_t, aux_t, blocks, **kw)
+    sync()
+    deterministic = bool(torch.equal(loss, loss2)) and all(
+        torch.equal(a, b) for a, b in zip(grads, grads2))
+    rel, held = metric_errors(loss, met, lp, mp, aux_t)
     leaf_fro, leaf_abs = [], []
     for g, want in zip(grads, gp):
         if not torch.isfinite(g).all():
             raise AssertionError("kernel gradient has non-finite values")
-        leaf_fro.append((torch.linalg.vector_norm(g - want) / torch.linalg.vector_norm(want)).item())
+        leaf_fro.append(rel_fro(g, want))
         leaf_abs.append((g - want).abs().max().item())
     out = {
         "rows": int(blocks.numel()) * tile, "tile": tile, "blocks": int(blocks.numel()),
         "loss": loss.item(), "plain_loss": lp.item(),
-        "rel_err": rel, "leaf_rel_fro": leaf_fro, "leaf_max_abs_err": leaf_abs,
+        "rel_err": rel, "held_err": held, "leaf_rel_fro": leaf_fro,
+        "leaf_max_abs_err": leaf_abs,
         "max_abs_err": max(leaf_abs), "deterministic": deterministic,
         "ratio_max": met["ratio_max"].item(),
     }
-    bad = {k: v for k, v in rel.items() if not v <= 1e-4}
+    bad = {k: v for k, v in held.items() if not v <= 1e-4}
     if bad or not max(leaf_fro) <= 1e-4 or not deterministic:
-        emit({"phase": "grad_t_vs_plain", "failed": out})
+        emit({"phase": phase, "failed": out})
         raise AssertionError(f"gradient kernel disagrees: {bad}, max leaf rel fro "
                              f"{max(leaf_fro):.3e}, deterministic={deterministic}")
     return out
+
+
+def rel_fro(a: torch.Tensor, b: torch.Tensor) -> float:
+    """||a - b|| / ||b||, Frobenius (0 where both are 0)."""
+    den = torch.linalg.vector_norm(b).item()
+    num = torch.linalg.vector_norm(a - b).item()
+    return num / den if den > 0 else num
+
+
+def bench_minibatch():
+    """The solved controller, its rollout at the bench shape after GAE in
+    the transposed layout, obs_t (T, 75, B) and aux_t (T, 8, B), and the
+    block ids of one quarter-batch minibatch (tile 1024), from seed 23."""
+    cfg, pcfg = EnvConfig(), PPOConfig()
+    model = load_solved_controller(DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(23)
+    states = hover.reset(gen, cfg, n=BENCH_B)
+    _, obs_t, misc, boot = ppo.rollout_batch_fused_raw(model, states, gen, cfg, BENCH_T, BENCH_P)
+    returns, advs = gae_advantages(misc[:, 9], misc[:, 8], misc[:, 10] > 0.5, boot,
+                                   pcfg.gamma, pcfg.gae_lambda)
+    aux_t = ppo.pack_aux_t(misc, returns, advs)
+    n_all = BENCH_T * BENCH_B // BENCH_TILE
+    blocks = torch.randperm(n_all, generator=gen, device=DEVICE)[: n_all // 4].to(torch.int32)
+    return model, obs_t, aux_t, blocks
 
 
 def phase_grad_t_vs_plain() -> dict:
@@ -380,16 +474,7 @@ def phase_grad_t_vs_plain() -> dict:
     blocks = torch.randperm(steps * b // tile, generator=g, device=DEVICE)[:n_blocks].to(torch.int32)
     small = grad_compare(model, obs, aux, blocks, tile)
 
-    cfg, pcfg = EnvConfig(), PPOConfig()
-    model = load_solved_controller(DEVICE)
-    gen = torch.Generator(device=DEVICE).manual_seed(23)
-    states = hover.reset(gen, cfg, n=BENCH_B)
-    _, obs_t, misc, boot = ppo.rollout_batch_fused_raw(model, states, gen, cfg, BENCH_T, BENCH_P)
-    returns, advs = gae_advantages(misc[:, 9], misc[:, 8], misc[:, 10] > 0.5, boot,
-                                   pcfg.gamma, pcfg.gae_lambda)
-    aux_t = ppo.pack_aux_t(misc, returns, advs)
-    n_all = BENCH_T * BENCH_B // BENCH_TILE
-    blocks = torch.randperm(n_all, generator=gen, device=DEVICE)[: n_all // 4].to(torch.int32)
+    model, obs_t, aux_t, blocks = bench_minibatch()
     bench = grad_compare(model, obs_t, aux_t, blocks, BENCH_TILE)
 
     kw = dict(tile=BENCH_TILE, action_std=ACTION_STD, clip_eps=CLIP_EPS,
@@ -406,6 +491,207 @@ def phase_grad_t_vs_plain() -> dict:
         "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": bytes_,
         "achieved_f32_tflops": flops / (ms / 1e3) / 1e12,
         "max_abs_err": max(small["max_abs_err"], bench["max_abs_err"]),
+    }
+    emit(out)
+    return out
+
+
+GRAD_ROWS_SMALL = ((8, 37), (40, 29), (128, 24))  # (tile, blocks) at 7680 seeded rows
+ROW_KW = dict(action_std=ACTION_STD, clip_eps=CLIP_EPS, entropy_coef=ENTROPY_COEF)
+
+
+def _leaves_of(model) -> list:
+    return [p for layer in model.linears() for p in (layer.weight, layer.bias)]
+
+
+def adam_compare(model, obs, aux, blocks, tile: int, warm_blocks: list) -> dict:
+    """B4 against its plain version from the same Adam state, after
+    ``warm_blocks``' plain steps (none: an empty state): new params,
+    exp_avg and exp_avg_sq within a relative Frobenius error of 1e-4 per
+    leaf, loss and metrics within rtol 1e-4, and the same bits from a second
+    launch from the same state.
+
+    Adam steps each entry by lr * m / (sqrt(v) + eps) with m, v its new
+    moments; from an empty state that is lr * g / (|g| + eps), about lr *
+    sign(g). Where m cancels to near zero the two versions can step an entry
+    in opposite directions with no fault in either. Such sign flips are
+    counted, left out of the params' error, and each must sit where |m| is
+    within the error the moments are held to (1e-4 of the leaf's Frobenius
+    norm); from an empty state m = (1 - b1) g, so that is B3's gradient
+    error."""
+    params = _leaves_of(model)
+    opt = torch.optim.Adam(params, lr=LEARN_LR, betas=(0.9, 0.999), eps=1e-8)
+    for wb in warm_blocks:
+        _, _, grads = pr.ppo_grad_plain(model, obs, aux, wb, tile=tile, **ROW_KW)
+        for p, g in zip(params, grads):
+            p.grad = g
+        opt.step()
+    for p in params:
+        p.grad = None
+    m0, v0, step = pr.adam_state(opt, params)
+    before = [[x.detach().clone() for x in xs] for xs in (params, m0, v0)]
+    lp, mp, p_want, m_want, v_want, _ = pr.ppo_grad_adam_plain(
+        [x.clone() for x in before[0]], [x.clone() for x in before[1]],
+        [x.clone() for x in before[2]], step, obs, aux, blocks, tile=tile,
+        lr=LEARN_LR, b1=0.9, b2=0.999, eps=1e-8, **ROW_KW,
+    )
+    runs = []
+    for _ in range(2):
+        with torch.no_grad():
+            for xs, saved in zip((params, m0, v0), before):
+                for x, y in zip(xs, saved):
+                    x.copy_(y)
+        for p in params:
+            opt.state[p]["step"].fill_(step)
+        loss, met = pr.fused_ppo_grad_adam(model, opt, obs, aux, blocks, tile=tile, **ROW_KW)
+        sync()
+        runs.append((loss, met, [[x.detach().clone() for x in xs] for xs in (params, m0, v0)]))
+    (loss, met, got), (loss2, _, got2) = runs
+    deterministic = bool(torch.equal(loss, loss2)) and all(
+        torch.equal(a, b) for xs, ys in zip(got, got2) for a, b in zip(xs, ys))
+    rel, held = metric_errors(loss, met, lp, mp, aux)
+    flips, flip_m, param_fro, param_abs = 0, 0.0, [], []
+    for new, want, old, m in zip(got[0], p_want, before[0], m_want):
+        keep = (torch.sign(new - old) * torch.sign(want - old)) >= 0
+        flips += int((~keep).sum())
+        if not keep.all():
+            flip_m = max(flip_m, (m.abs()[~keep].max() / torch.linalg.vector_norm(m)).item())
+        param_fro.append(rel_fro(new[keep], want[keep]))
+        param_abs.append((new[keep] - want[keep]).abs().max().item())
+    fro = {"params": param_fro,
+           "exp_avg": [rel_fro(a, b) for a, b in zip(got[1], m_want)],
+           "exp_avg_sq": [rel_fro(a, b) for a, b in zip(got[2], v_want)]}
+    out = {
+        "rows": int(blocks.numel()) * tile, "tile": tile, "warm_steps": len(warm_blocks),
+        "loss": loss.item(), "plain_loss": lp.item(), "rel_err": rel, "held_err": held,
+        "leaf_rel_fro": fro,
+        "sign_flips": flips, "max_flip_m_over_leaf_norm": flip_m,
+        "deterministic": deterministic, "step_after": int(opt.state[params[0]]["step"]),
+        "max_abs_err": max(param_abs),
+    }
+    bad = {k: v for k, v in held.items() if not v <= 1e-4}
+    worst = max(max(v) for v in fro.values())
+    if (bad or not worst <= 1e-4 or not deterministic or not flip_m <= 1e-4
+            or out["step_after"] != step + 1):
+        emit({"phase": "grad_vs_plain", "failed": out})
+        raise AssertionError(f"B4 disagrees: {bad}, worst leaf rel fro {worst:.3e}, "
+                             f"flips {flips} (max |m|/||m|| {flip_m:.3e}), "
+                             f"deterministic={deterministic}")
+    return out
+
+
+def trainer_configs():
+    """The trainer's defaults (apps/train_control.py) at LEARN_B x LEARN_T
+    with fused_update on: a full batch, so B3 runs on every row block."""
+    return (EnvConfig(), PPOConfig(lr=LEARN_LR, k_epochs=10, fused_update=True),
+            TrainConfig(num_envs=LEARN_B, rollout_steps=LEARN_T, network_size=128))
+
+
+def trainer_batch():
+    """The rows B3 takes on the first step of `trainer_configs`' train step
+    from `ppo_init` at seed 2 (train_rowmajor (a)): `rollout_batch` with
+    per-step auto-reset, GAE, flattened row-major as `ppo_update` does it;
+    with the tile `update_plan` picks and every row block in order."""
+    env_cfg, pcfg, tcfg = trainer_configs()
+    model, _, state = ppo.ppo_init(2, env_cfg, pcfg, tcfg, device=DEVICE)
+    _, roll, boot = ppo.rollout_batch(model, state.env_states, state.gen, env_cfg, LEARN_T)
+    returns, advs = gae_advantages(roll.rewards, roll.values, roll.dones, boot,
+                                   pcfg.gamma, pcfg.gae_lambda)
+    obs = roll.obs.reshape(-1, pr.OBS).contiguous()
+    aux = pr.pack_aux(roll.actions.reshape(obs.shape[0], -1),
+                      roll.logprobs.reshape(obs.shape[0], -1), returns.reshape(-1),
+                      advs.reshape(-1))
+    tile = ppo.update_plan(pcfg, obs.shape[0]).tile
+    blocks = torch.arange(obs.shape[0] // tile, dtype=torch.int32, device=DEVICE)
+    return model, obs, aux, tile, blocks
+
+
+def timed_rows(model, obs, aux, blocks, tile: int) -> dict:
+    """B3's and B4's times at these rows beside their plain versions' and
+    their bounds (B4 on a copy of the model, from an empty Adam state)."""
+    kw = dict(tile=tile, **ROW_KW)
+    out = {
+        "b3_ms": time_cuda(lambda: pr.fused_ppo_grad(model, obs, aux, blocks, **kw), 2, 10),
+        "b3_plain_ms": time_cuda(lambda: pr.ppo_grad_plain(model, obs, aux, blocks, **kw), 1, 3),
+    }
+    m_adam = copy.deepcopy(model)
+    opt = torch.optim.Adam(m_adam.parameters(), lr=LEARN_LR, eps=1e-8)
+    out["b4_ms"] = time_cuda(
+        lambda: pr.fused_ppo_grad_adam(m_adam, opt, obs, aux, blocks, **kw), 2, 10)
+    m0 = [torch.zeros_like(x) for x in _leaves_of(model)]
+    out["b4_plain_ms"] = time_cuda(lambda: pr.ppo_grad_adam_plain(
+        model, m0, m0, 0, obs, aux, blocks, lr=LEARN_LR, b1=0.9, b2=0.999, **kw), 1, 3)
+    rows, n_params = int(blocks.numel()) * tile, sum(p.numel() for p in model.parameters())
+    for name, adam in (("b3", False), ("b4", True)):
+        bound_ms, bound_by, flops, _ = grad_bound(rows, int(blocks.numel()), model.hidden,
+                                                  n_params, adam=adam)
+        out[name + "_bound_ms"], out[name + "_bound_by"] = bound_ms, bound_by
+        out[name + "_f32_tflops"] = flops / (out[name + "_ms"] / 1e3) / 1e12
+    return out
+
+
+def phase_grad_vs_plain() -> dict:
+    """B3 and B4 against their plain versions: (a) seeded row-major data
+    (7680 rows, ratios on both sides of the clip band) at tiles 8, 40 and
+    128, minibatches of 296, 1160 and 3072 rows, so chunks of 32 rows span
+    blocks and the last one is padded; (b) the bench minibatch of
+    `bench_minibatch` made row-major (row t * B + b; the same block ids
+    name the same rows), where B4 runs in train_rowmajor (b); (c) the full
+    batch of `trainer_batch` (131,072 rows, tile 128, every block), where
+    B3 runs in train_rowmajor (a) and B4 in learn_rowmajor. B4 from a state
+    warmed by 3 plain steps at (a)'s tile 40, at (b) and at (c), and from an
+    empty state at (a)'s tile 40. Then the times of both kernels and their
+    plain versions, and the bounds, at (b) and (c)."""
+    t0 = time.perf_counter()
+    n = 7680
+    g = torch.Generator(device=DEVICE).manual_seed(31)
+    obs = torch.randn(n, pr.OBS, generator=g, device=DEVICE) * 0.3
+    aux = torch.zeros(n, 8, device=DEVICE)
+    aux[:, 0:4] = torch.randn(n, 4, generator=g, device=DEVICE) * 0.2
+    aux[:, 4] = torch.randn(n, generator=g, device=DEVICE) * 0.4 - 4.0
+    aux[:, 5:7] = torch.randn(n, 2, generator=g, device=DEVICE)
+    torch.manual_seed(32)
+    model = ActorCritic(hidden=128, action_std=ACTION_STD).to(DEVICE)
+    small, small_blocks = [], {}
+    for tile, n_blocks in GRAD_ROWS_SMALL:
+        perm = torch.randperm(n // tile, generator=g, device=DEVICE).to(torch.int32)
+        small_blocks[tile] = perm
+        small.append(grad_compare(model, obs, aux, perm[:n_blocks], tile, pr.fused_ppo_grad,
+                                  pr.ppo_grad_plain, "grad_vs_plain"))
+    tile, n_blocks = GRAD_ROWS_SMALL[1]
+    perm = small_blocks[tile]
+    warm = [perm[n_blocks * (i + 1): n_blocks * (i + 2)] for i in range(3)]
+    adam_small_warm = adam_compare(copy.deepcopy(model), obs, aux, perm[:n_blocks], tile, warm)
+    adam_small_cold = adam_compare(copy.deepcopy(model), obs, aux, perm[:n_blocks], tile, [])
+
+    model, obs_t, aux_t, blocks = bench_minibatch()
+    obs_r = obs_t.transpose(1, 2).reshape(-1, pr.OBS).contiguous()
+    aux_r = aux_t.transpose(1, 2).reshape(-1, 8).contiguous()
+    del obs_t, aux_t
+    bench = grad_compare(model, obs_r, aux_r, blocks, BENCH_TILE, pr.fused_ppo_grad,
+                         pr.ppo_grad_plain, "grad_vs_plain")
+    n_all = obs_r.shape[0] // BENCH_TILE
+    others = torch.randperm(n_all, generator=g, device=DEVICE).to(torch.int32)
+    warm = [others[i * (n_all // 4): (i + 1) * (n_all // 4)] for i in range(3)]
+    adam_bench = adam_compare(copy.deepcopy(model), obs_r, aux_r, blocks, BENCH_TILE, warm)
+    bench_times = timed_rows(model, obs_r, aux_r, blocks, BENCH_TILE)
+    del obs_r, aux_r
+
+    model, obs_a, aux_a, tile_a, every = trainer_batch()
+    trainer = grad_compare(model, obs_a, aux_a, every, tile_a, pr.fused_ppo_grad,
+                           pr.ppo_grad_plain, "grad_vs_plain")
+    adam_trainer = adam_compare(copy.deepcopy(model), obs_a, aux_a, every, tile_a, [every] * 3)
+    trainer_times = timed_rows(model, obs_a, aux_a, every, tile_a)
+    out = {
+        "phase": "grad_vs_plain", "seconds": time.perf_counter() - t0, "card": card(),
+        "small": small, "bench": bench, "trainer": trainer,
+        "adam_small_warm": adam_small_warm, "adam_small_empty": adam_small_cold,
+        "adam_bench_warm": adam_bench, "adam_trainer_warm": adam_trainer,
+        "bench_times": bench_times, "trainer_times": trainer_times,
+        "b3_max_abs_err": max([r["max_abs_err"] for r in small]
+                              + [bench["max_abs_err"], trainer["max_abs_err"]]),
+        "b4_max_abs_err": max(adam_small_warm["max_abs_err"], adam_small_cold["max_abs_err"],
+                              adam_bench["max_abs_err"], adam_trainer["max_abs_err"]),
     }
     emit(out)
     return out
@@ -611,35 +897,50 @@ def optimizer_in_step(step, state) -> tuple[object, float, int]:
     return state, sum(a.elapsed_time(b) for a, b in events), len(events)
 
 
-def phase_train() -> dict:
-    """The main path: 3 fully fused train steps at the bench configuration,
-    each with both launch counters set to 0 just before and read just after.
-    Then, warm, where a step's time goes."""
-    t0 = time.perf_counter()
-    env_cfg, pcfg, tcfg = bench_configs()
-    model, opt, state = ppo.ppo_init(1, env_cfg, pcfg, tcfg, device=DEVICE)
-    step = ppo.make_train_step(model, opt, env_cfg, pcfg, tcfg)
+def launches_want(**counts) -> dict:
+    """Every kernel's launch count, 0 unless given."""
+    return {name: counts.get(name, 0) for name in COUNTERS}
+
+
+def counted_steps(step, state, model, n: int, want: dict):
+    """``n`` train steps, each with every launch counter set to 0 just before
+    and read just after; each must launch ``want``. Returns the state, the
+    steps' host ms, their launches, the last metrics as floats and the peak
+    device memory. Fails on non-finite metrics or unchanged parameters."""
     before = [p.detach().clone() for p in model.parameters()]
-    n_mb = 4
     torch.cuda.reset_peak_memory_stats()
     step_ms, launches, metrics = [], [], {}
-    for _ in range(3):
+    for _ in range(n):
         sync()
-        rf.fused_rollout.launches = 0
-        pf.fused_ppo_grad_t.launches = 0
+        zero_counters()
         t_step = time.perf_counter()
         state, metrics = step(state)
         sync()
         step_ms.append((time.perf_counter() - t_step) * 1e3)
-        launches.append((rf.fused_rollout.launches, pf.fused_ppo_grad_t.launches))
-        if launches[-1] != (1, BENCH_K * n_mb):
-            raise AssertionError(f"a train step launched {launches[-1]}, want (1, {BENCH_K * n_mb})")
+        launches.append(read_counters())
+        if launches[-1] != want:
+            raise AssertionError(f"a train step launched {launches[-1]}, want {want}")
     peak_bytes = torch.cuda.max_memory_allocated()
     metrics = {k: v.item() for k, v in metrics.items()}
     if not all(math.isfinite(v) for v in metrics.values()):
         raise AssertionError(f"non-finite metrics {metrics}")
     if all(torch.equal(a, p) for a, p in zip(before, model.parameters())):
         raise AssertionError("the train steps did not change the parameters")
+    return state, step_ms, launches, metrics, peak_bytes
+
+
+def phase_train() -> dict:
+    """The main path: 3 fully fused train steps at the bench configuration,
+    each with every launch counter set to 0 just before and read just after
+    (1 B1 and 40 B2 launches, nothing else). Then, warm, where a step's time
+    goes."""
+    t0 = time.perf_counter()
+    env_cfg, pcfg, tcfg = bench_configs()
+    model, opt, state = ppo.ppo_init(1, env_cfg, pcfg, tcfg, device=DEVICE)
+    step = ppo.make_train_step(model, opt, env_cfg, pcfg, tcfg)
+    n_mb = 4
+    state, step_ms, launches, metrics, peak_bytes = counted_steps(
+        step, state, model, 3, launches_want(rollout_fused=1, ppo_fused_t=BENCH_K * n_mb))
     warm_ms = sum(step_ms[1:]) / len(step_ms[1:])
 
     # Where the time goes, warm, at this configuration's shapes.
@@ -689,17 +990,25 @@ def phase_train() -> dict:
     return out
 
 
-def phase_learn() -> dict:
-    """From scratch at the trainer's defaults, evaluating every
-    LEARN_EVAL_EVERY updates; passes at the first eval with eval_solved >=
-    LEARN_SOLVED, fails if none reaches it by LEARN_MAX_UPDATES."""
+def phase_learn(phase: str = "learn", first_eval: int = 0, **flags) -> dict:
+    """From scratch at the trainer's defaults with the rollout kernel and
+    fused_update (and the PPOConfig ``flags``), evaluating every
+    LEARN_EVAL_EVERY updates from ``first_eval`` on; passes at the first
+    eval with eval_solved >= LEARN_SOLVED, fails if none reaches it by
+    LEARN_MAX_UPDATES. The first update's launches are counted: 1 B1 and
+    K B2 on the fully fused path, K B4 instead with fused_adam."""
     t0 = time.perf_counter()
     env_cfg = EnvConfig()
-    pcfg = PPOConfig(lr=LEARN_LR, k_epochs=10, fused_update=True)
+    pcfg = PPOConfig(lr=LEARN_LR, k_epochs=10, fused_update=True, **flags)
     tcfg = TrainConfig(num_envs=LEARN_B, rollout_steps=LEARN_T, network_size=128,
                        fused_rollout=True, fused_pool=4)
     model, opt, state = ppo.ppo_init(LEARN_SEED, env_cfg, pcfg, tcfg, device=DEVICE)
     step = ppo.make_train_step(model, opt, env_cfg, pcfg, tcfg)
+    branch = ppo.train_branch(model, opt, env_cfg, pcfg, tcfg)
+    update = "ppo_fused_t" if branch == "fused_t" else {
+        "fused": "ppo_fused", "fused_adam": "ppo_fused_adam"}[ppo.update_plan(
+            pcfg, LEARN_B * LEARN_T).branch]
+    want = launches_want(rollout_fused=1, **{update: pcfg.k_epochs})
     eval_fn = ppo.make_eval_fn(model, env_cfg, LEARN_EPISODES)
     eval_gen = torch.Generator(device=DEVICE).manual_seed(LEARN_SEED + 1000)
     tile = ppo.update_t_tile(pcfg, LEARN_T, LEARN_B)
@@ -708,13 +1017,13 @@ def phase_learn() -> dict:
     for u in range(1, LEARN_MAX_UPDATES + 1):
         t_u = time.perf_counter()
         if u == 1:
-            rf.fused_rollout.launches = pf.fused_ppo_grad_t.launches = 0
+            zero_counters()
         state, met = step(state)
         if u == 1:
             sync()
-            first_launches = (rf.fused_rollout.launches, pf.fused_ppo_grad_t.launches)
+            first_launches = read_counters()
         train_s += time.perf_counter() - t_u
-        if u % LEARN_EVAL_EVERY == 0:
+        if u % LEARN_EVAL_EVERY == 0 and u >= first_eval:
             sync()
             t_e = time.perf_counter()
             ev = {k: v.item() for k, v in eval_fn(eval_gen).items()}
@@ -723,23 +1032,95 @@ def phase_learn() -> dict:
                    "eval_solved": ev["eval_solved"], "eval_reward": ev["eval_reward"],
                    "seconds": time.perf_counter() - t0}
             curve.append(row)
-            print(json.dumps({"learn_curve": row}), flush=True)
+            print(json.dumps({f"{phase}_curve": row}), flush=True)
             if ev["eval_solved"] >= LEARN_SOLVED:
                 solved_at = u
                 break
+    sync()
+    updates = curve[-1]["update"] if curve else LEARN_MAX_UPDATES
     out = {
-        "phase": "learn", "seconds": time.perf_counter() - t0, "seed": LEARN_SEED,
-        "B": LEARN_B, "T": LEARN_T, "lr": LEARN_LR, "tile": tile,
-        "launches_first_update": first_launches, "curve": curve, "solved_at_update": solved_at,
-        "train_seconds": train_s, "eval_seconds": eval_s,
-        "ms_per_update": 1e3 * train_s / max(curve[-1]["update"] if curve else 1, 1),
+        "phase": phase, "seconds": time.perf_counter() - t0, "seed": LEARN_SEED,
+        "B": LEARN_B, "T": LEARN_T, "lr": LEARN_LR, "tile": tile, "branch": branch,
+        "update_kernel": update, "launches_first_update": first_launches, "curve": curve,
+        "solved_at_update": solved_at, "train_seconds": train_s, "eval_seconds": eval_s,
+        "ms_per_update": 1e3 * train_s / updates,
     }
     emit(out)
-    if first_launches != (1, pcfg.k_epochs):
-        raise AssertionError(f"the first update launched {first_launches}, want (1, 10)")
+    if first_launches != want:
+        raise AssertionError(f"the first update launched {first_launches}, want {want}")
     if solved_at is None:
         raise AssertionError(f"no eval reached eval_solved >= {LEARN_SOLVED} by update "
                              f"{LEARN_MAX_UPDATES}")
+    return out
+
+
+def phase_train_rowmajor(fused_warm_step_ms: float) -> dict:
+    """The row-major branch of the train step, 3 steps per configuration,
+    each with every launch counter set to 0 just before and read just after:
+
+    (a) the trainer's defaults (1024 x 128, per-step auto-reset, K=10, full
+        batch, so tile 128) with fused_update: 10 B3 launches a step and no
+        other kernel. Then, warm, the rollout and the update timed apart, and
+        the trainer's own defaults (fused_update off: the autograd update)
+        timed per update, with the time that 750 such updates would take
+        (the JAX package solves at those defaults in about 750);
+    (b) bench.py's configuration with fused_adam on as well: 1 B1 and 40 B4
+        launches a step; its warm step beside the fully fused one's from the
+        train phase (``fused_warm_step_ms``), and its rollout and update
+        timed apart."""
+    t0 = time.perf_counter()
+    env_cfg, pcfg, tcfg = trainer_configs()
+    a_tile = ppo.update_plan(pcfg, LEARN_B * LEARN_T).tile
+    model, opt, state = ppo.ppo_init(2, env_cfg, pcfg, tcfg, device=DEVICE)
+    step = ppo.make_train_step(model, opt, env_cfg, pcfg, tcfg)
+    state, a_ms, a_launches, a_metrics, _ = counted_steps(
+        step, state, model, 3, launches_want(ppo_fused=pcfg.k_epochs))
+    _, roll, boot = ppo.rollout_batch(model, state.env_states, state.gen, env_cfg, LEARN_T)
+    rollout_ms = host_ms(lambda: ppo.rollout_batch(model, state.env_states, state.gen, env_cfg,
+                                                   LEARN_T), 1)
+    update_ms = host_ms(lambda: ppo.ppo_update(model, opt, roll, boot, state.gen, pcfg), 2)
+    dcfg = PPOConfig(lr=LEARN_LR, k_epochs=10)
+    m2, o2, s2 = ppo.ppo_init(3, env_cfg, dcfg, tcfg, device=DEVICE)
+    step2 = ppo.make_train_step(m2, o2, env_cfg, dcfg, tcfg)
+    s2, d_ms, d_launches, _, _ = counted_steps(step2, s2, m2, 2, launches_want())
+    default_update_ms = host_ms(lambda: ppo.ppo_update(m2, o2, roll, boot, s2.gen, dcfg), 2)
+    default_ms = d_ms[-1]
+
+    env_cfg, pcfg, tcfg = bench_configs()
+    pcfg = dataclasses.replace(pcfg, fused_adam=True)
+    model, opt, state = ppo.ppo_init(1, env_cfg, pcfg, tcfg, device=DEVICE)
+    step = ppo.make_train_step(model, opt, env_cfg, pcfg, tcfg)
+    state, b_ms, b_launches, b_metrics, b_peak = counted_steps(
+        step, state, model, 3, launches_want(rollout_fused=1, ppo_fused_adam=BENCH_K * 4))
+    b_warm = sum(b_ms[1:]) / len(b_ms[1:])
+    # Warm, apart: the rollout through the kernel (inputs included), and the
+    # update with its row-major copy of the batch, GAE and 40 B4 launches.
+    b_rollout_ms = host_ms(lambda: ppo.rollout_batch_fused(
+        model, state.env_states, state.gen, env_cfg, BENCH_T, BENCH_P), 1)
+    _, roll, boot = ppo.rollout_batch_fused(model, state.env_states, state.gen, env_cfg,
+                                            BENCH_T, BENCH_P)
+    b_update_ms = host_ms(lambda: ppo.ppo_update(model, opt, roll, boot, state.gen, pcfg), 1)
+    out = {
+        "phase": "train_rowmajor", "seconds": time.perf_counter() - t0, "card": card(),
+        "trainer_fused_update": {
+            "B": LEARN_B, "T": LEARN_T, "K": 10, "tile": a_tile, "step_ms": a_ms,
+            "launches_per_step": a_launches, "metrics": a_metrics,
+            "rollout_batch_ms": rollout_ms, "ppo_update_ms": update_ms,
+        },
+        "trainer_defaults": {
+            "step_ms": d_ms, "launches_per_step": d_launches, "ms_per_update": default_ms,
+            "ppo_update_ms": default_update_ms,
+            "projected_seconds_for_750_updates": default_ms * 750 / 1e3,
+        },
+        "bench_fused_adam": {
+            "B": BENCH_B, "T": BENCH_T, "K": BENCH_K, "minibatches": 4, "tile": BENCH_TILE,
+            "step_ms": b_ms, "warm_step_ms": b_warm, "launches_per_step": b_launches,
+            "env_steps_per_s": BENCH_B * BENCH_T / (b_warm / 1e3), "metrics": b_metrics,
+            "peak_memory_bytes": b_peak, "fully_fused_warm_step_ms": fused_warm_step_ms,
+            "rollout_batch_fused_ms": b_rollout_ms, "ppo_update_ms": b_update_ms,
+        },
+    }
+    emit(out)
     return out
 
 
@@ -751,31 +1132,43 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    phase_build()
+    seconds = {"build": phase_build()["seconds"]}
     kvp = phase_kernel_vs_plain()
     gvp = phase_grad_t_vs_plain()
+    rvp = phase_grad_vs_plain()
     sl = phase_slice()
-    phase_fly()
+    fly = phase_fly()
     tr = phase_train()
-    phase_learn()
+    trr = phase_train_rowmajor(tr["warm_step_ms"])
+    ln = phase_learn()
+    lnr = phase_learn("learn_rowmajor", LEARN_ROWMAJOR_FIRST_EVAL, fused_adam=True)
+    for out in (kvp, gvp, rvp, sl, fly, tr, trr, ln, lnr):
+        seconds[out["phase"]] = out["seconds"]
     max_err = max([r["max_abs_err"] for r in kvp["runs"]] + [sl["compare"]["max_abs_err"]])
-    b1_launches, b2_launches = tr["launches_per_step"][-1]
+    fused = tr["launches_per_step"][-1]
+    rowmajor = trr["trainer_fused_update"]["launches_per_step"][-1]
+    with_adam = trr["bench_fused_adam"]["launches_per_step"][-1]
+
+    def entry(name, launches, err, ms, plain_ms, bound_ms, bound_by):
+        return {"name": name, "route": "cuda", "source": KERNELS[name][0],
+                "replaces": KERNELS[name][1], "launches": launches, "max_abs_err": err,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": None}
+
+    # Each kernel's times and bound at the shape of the phase its launches
+    # are counted in: B3 at train_rowmajor (a)'s full batch, B4 at (b)'s
+    # bench minibatch.
+    b3, b4 = rvp["trainer_times"], rvp["bench_times"]
     emit({"kernels": [
-        {
-            "name": "rollout_fused", "route": "cuda",
-            "source": KERNELS["rollout_fused"][0], "replaces": KERNELS["rollout_fused"][1],
-            "launches": b1_launches, "max_abs_err": max_err,
-            "ms": sl["kernel_ms"], "plain_ms": sl["plain_ms"],
-            "bound_ms": sl["bound_ms"], "bound_by": sl["bound_by"], "library_ms": None,
-        },
-        {
-            "name": "ppo_fused_t", "route": "cuda",
-            "source": KERNELS["ppo_fused_t"][0], "replaces": KERNELS["ppo_fused_t"][1],
-            "launches": b2_launches, "max_abs_err": gvp["max_abs_err"],
-            "ms": gvp["kernel_ms"], "plain_ms": gvp["plain_ms"],
-            "bound_ms": gvp["bound_ms"], "bound_by": gvp["bound_by"], "library_ms": None,
-        },
-    ], "seconds": time.perf_counter() - t0})
+        entry("rollout_fused", fused["rollout_fused"], max_err, sl["kernel_ms"],
+              sl["plain_ms"], sl["bound_ms"], sl["bound_by"]),
+        entry("ppo_fused_t", fused["ppo_fused_t"], gvp["max_abs_err"], gvp["kernel_ms"],
+              gvp["plain_ms"], gvp["bound_ms"], gvp["bound_by"]),
+        entry("ppo_fused", rowmajor["ppo_fused"], rvp["b3_max_abs_err"], b3["b3_ms"],
+              b3["b3_plain_ms"], b3["b3_bound_ms"], b3["b3_bound_by"]),
+        entry("ppo_fused_adam", with_adam["ppo_fused_adam"], rvp["b4_max_abs_err"],
+              b4["b4_ms"], b4["b4_plain_ms"], b4["b4_bound_ms"], b4["b4_bound_by"]),
+    ], "seconds": time.perf_counter() - t0, "phase_seconds": seconds})
     print(card(), flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu",

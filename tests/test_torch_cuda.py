@@ -1,10 +1,14 @@
 """Card-only tests of the port's CUDA kernels: each kernel against its plain
-PyTorch version on the same CUDA tensors, the launch counts of a train step,
-and the wrappers' refusals. They skip on a machine without a CUDA card. This file imports nothing of JAX, so on the card (which has no
-JAX; tests/conftest.py imports it) it runs as
+PyTorch version on the same CUDA tensors, the launch counts of train steps,
+the wrappers' refusals, and the train step's refusal of shapes the kernels
+do not take. They skip on a machine without a CUDA card. This file imports
+nothing of JAX, so on the card (which has no JAX; tests/conftest.py imports
+it) it runs as
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+
+import dataclasses
 
 import pytest
 import torch
@@ -14,6 +18,7 @@ from autonomous_quadrotor_environment_tpu_torch.agents import ppo
 from autonomous_quadrotor_environment_tpu_torch.agents.ppo import fused_inputs
 from autonomous_quadrotor_environment_tpu_torch.config import EnvConfig, PPOConfig, TrainConfig
 from autonomous_quadrotor_environment_tpu_torch.envs import hover
+from autonomous_quadrotor_environment_tpu_torch.ops import ppo_fused as pr
 from autonomous_quadrotor_environment_tpu_torch.ops import ppo_fused_t as pf
 from autonomous_quadrotor_environment_tpu_torch.ops import rollout_fused as rf
 
@@ -157,5 +162,177 @@ def test_bench_shape_train_step_launches_both_kernels(card):
     torch.cuda.synchronize()
     assert rf.fused_rollout.launches == 1
     assert pf.fused_ppo_grad_t.launches == 40
+    assert all(torch.isfinite(v).all() for v in metrics.values())
+    assert any(not torch.equal(a, p) for a, p in zip(before, model.parameters()))
+
+
+# ---------------------------------------------------------------------------
+# The row-major PPO kernels (B3 `fused_ppo_grad`, B4 `fused_ppo_grad_adam`)
+# ---------------------------------------------------------------------------
+
+
+def _row_inputs(card, n, seed=0, hidden=128):
+    """Seeded row-major update rows (n, 75) and (n, 8), ratios on both sides
+    of the clip band, and a seeded model."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    obs = torch.randn(n, 75, generator=g, device=card) * 0.3
+    aux = torch.zeros(n, 8, device=card)
+    aux[:, 0:4] = torch.randn(n, 4, generator=g, device=card) * 0.2
+    aux[:, 4] = torch.randn(n, generator=g, device=card) * 0.4 - 4.0
+    aux[:, 5:7] = torch.randn(n, 2, generator=g, device=card)
+    torch.manual_seed(seed)
+    model = ActorCritic(hidden=hidden).to(card)
+    return model, obs, aux, g
+
+
+ROW_KW = dict(action_std=0.1, clip_eps=0.2, entropy_coef=0.006)
+
+
+@pytest.mark.parametrize("n,tile,n_blocks", [(2048, 128, 12), (1200, 40, 13), (96, 8, 7), (512, 512, 1)])
+def test_rows_grad_kernel_matches_plain(card, n, tile, n_blocks):
+    """B3 against autograd on the gathered rows: loss and metrics within
+    rtol 1e-4, each gradient leaf within a relative Frobenius error of 1e-4
+    (chip_smoke.py's grad_vs_plain tolerance), the same bits on a second
+    launch. Tiles 40 and 8 are not multiples of the kernel's 32-row chunk,
+    so chunks span blocks and the last one is padded."""
+    model, obs, aux, g = _row_inputs(card, n)
+    blocks = torch.randperm(n // tile, generator=g, device=card)[:n_blocks].to(torch.int32)
+    before = pr.fused_ppo_grad.launches
+    loss, met, grads = pr.fused_ppo_grad(model, obs, aux, blocks, tile=tile, **ROW_KW)
+    loss2, _, grads2 = pr.fused_ppo_grad(model, obs, aux, blocks, tile=tile, **ROW_KW)
+    torch.cuda.synchronize()
+    assert pr.fused_ppo_grad.launches == before + 2
+    lp, mp, gp = pr.ppo_grad_plain(model, obs, aux, blocks, tile=tile, **ROW_KW)
+    torch.testing.assert_close(loss, lp, rtol=1e-4, atol=0)
+    for k in mp:
+        torch.testing.assert_close(met[k], mp[k], rtol=1e-4, atol=0, msg=k)
+    for gk, gp_ in zip(grads, gp):
+        assert gk.shape == gp_.shape
+        assert _rel_fro(gk, gp_) <= 1e-4
+    assert torch.equal(loss, loss2)
+    assert all(torch.equal(x, y) for x, y in zip(grads, grads2))
+
+
+def _warm_adam(model, steps=3, seed=5):
+    """An Adam over the model warmed by a few plain steps on seeded
+    gradients, so that no moment is near zero."""
+    opt = torch.optim.Adam(model.parameters(), lr=5e-4, eps=1e-8)
+    g = torch.Generator(device=next(model.parameters()).device).manual_seed(seed)
+    for _ in range(steps):
+        for p in model.parameters():
+            p.grad = torch.randn(p.shape, generator=g, device=p.device) * 1e-2
+        opt.step()
+    for p in model.parameters():
+        p.grad = None
+    return opt
+
+
+def test_rows_adam_kernel_matches_plain(card):
+    """B4 from a warmed Adam state against the plain version on copies of
+    the same state: loss within rtol 1e-4, new params, exp_avg and
+    exp_avg_sq each within a relative Frobenius error of 1e-4 per leaf; the
+    step count moves by one and `opt.step()` goes on from the kernel's
+    state."""
+    model, obs, aux, g = _row_inputs(card, 1200)
+    blocks = torch.randperm(30, generator=g, device=card)[:13].to(torch.int32)
+    opt = _warm_adam(model)
+    params = [p for l in model.linears() for p in (l.weight, l.bias)]
+    m0 = [opt.state[p]["exp_avg"].clone() for p in params]
+    v0 = [opt.state[p]["exp_avg_sq"].clone() for p in params]
+    leaves = [p.detach().clone() for p in params]
+    want = pr.ppo_grad_adam_plain(leaves, m0, v0, 3, obs, aux, blocks, tile=40, lr=5e-4,
+                                  b1=0.9, b2=0.999, **ROW_KW)
+    before = pr.fused_ppo_grad_adam.launches
+    loss, _ = pr.fused_ppo_grad_adam(model, opt, obs, aux, blocks, tile=40, **ROW_KW)
+    torch.cuda.synchronize()
+    assert pr.fused_ppo_grad_adam.launches == before + 1
+    torch.testing.assert_close(loss, want[0], rtol=1e-4, atol=0)
+    for i, p in enumerate(params):
+        assert _rel_fro(p.detach(), want[2][i]) <= 1e-4
+        assert _rel_fro(opt.state[p]["exp_avg"], want[3][i]) <= 1e-4
+        assert _rel_fro(opt.state[p]["exp_avg_sq"], want[4][i]) <= 1e-4
+        assert int(opt.state[p]["step"]) == 4
+    for p in params:
+        p.grad = torch.ones_like(p)
+    opt.step()
+    assert all(int(opt.state[p]["step"]) == 5 for p in params)
+
+
+def test_rows_kernels_refuse_what_they_do_not_take(card):
+    model, obs, aux, _ = _row_inputs(card, 256)
+    blocks = torch.arange(2, dtype=torch.int32, device=card)
+    opt = torch.optim.Adam(model.parameters(), lr=5e-4)
+    before = (pr.fused_ppo_grad.launches, pr.fused_ppo_grad_adam.launches)
+    for bad in (
+        lambda: pr.fused_ppo_grad(model, obs, aux, blocks, tile=48, **ROW_KW),  # does not divide n
+        lambda: pr.fused_ppo_grad(ActorCritic(hidden=32).to(card), obs, aux, blocks, tile=32,
+                                  **ROW_KW),
+        lambda: pr.fused_ppo_grad(model, obs, aux, blocks.long(), tile=32, **ROW_KW),
+        lambda: pr.fused_ppo_grad(model, obs.double(), aux, blocks, tile=32, **ROW_KW),
+        lambda: pr.fused_ppo_grad(model, obs.t().contiguous().t(), aux, blocks, tile=32, **ROW_KW),
+        lambda: pr.fused_ppo_grad(model, obs, aux[:, :7].contiguous(), blocks, tile=32, **ROW_KW),
+        lambda: pr.fused_ppo_grad_adam(model, opt, obs, aux, blocks, tile=48, **ROW_KW),
+        lambda: pr.fused_ppo_grad_adam(model, torch.optim.SGD(model.parameters(), lr=0.1), obs,
+                                       aux, blocks, tile=32, **ROW_KW),
+    ):
+        with pytest.raises(ValueError):
+            bad()
+    assert (pr.fused_ppo_grad.launches, pr.fused_ppo_grad_adam.launches) == before
+
+
+def test_make_train_step_refuses_shapes_the_card_kernels_do_not_take(card):
+    """The configurations that the JAX package sends to a kernel the port's
+    kernels do not take yet are refused when the step is built, naming the
+    ROADMAP item, not at the first launch (ROADMAP C1); the autograd branch
+    takes any width."""
+    env_cfg = EnvConfig()
+    small = TrainConfig(num_envs=64, rollout_steps=16, network_size=32)
+    cases = [
+        (PPOConfig(fused_update=True), dataclasses.replace(small, fused_rollout=True)),  # B1+B2, 32
+        (PPOConfig(), dataclasses.replace(small, fused_rollout=True)),                   # B1, 32
+        (PPOConfig(fused_update=True), small),                                           # B3, 32
+        (PPOConfig(fused_update=True, fused_adam=True), small),                          # B4, 32
+        (PPOConfig(fused_update=True, shuffle_block=16),                                 # B2 tile 16
+         dataclasses.replace(small, network_size=128, fused_rollout=True)),
+    ]
+    wide = dataclasses.replace(small, network_size=128)
+    short = dataclasses.replace(env_cfg, hist_t=4)  # 60-dim obs
+    cases = [(env_cfg, p, t) for p, t in cases] + [
+        (short, PPOConfig(fused_update=True), wide),                                     # B3, obs 60
+        (short, PPOConfig(fused_update=True, fused_adam=True), wide),                    # B4, obs 60
+    ]
+    for env, pcfg, tcfg in cases:
+        model, opt, _ = ppo.ppo_init(0, env, pcfg, tcfg, obs_dim=env.hist_t * 15)
+        with pytest.raises(NotImplementedError, match="the rest of B1 and B2"):
+            ppo.make_train_step(model, opt, env, pcfg, tcfg)
+    model, opt, state = ppo.ppo_init(0, env_cfg, PPOConfig(k_epochs=1), small)
+    state, metrics = ppo.make_train_step(model, opt, env_cfg, PPOConfig(k_epochs=1), small)(state)
+    assert all(torch.isfinite(v).all() for v in metrics.values())
+
+
+@pytest.mark.parametrize("which", ["b3", "b4"])
+def test_rowmajor_train_step_launches_its_kernels(card, which):
+    """A row-major train step launches B3 K x n_mb times after the unfused
+    rollout (fused_update), or B1 once and B4 K x n_mb times (fused_rollout
+    and fused_adam), and nothing else."""
+    env_cfg = EnvConfig()
+    if which == "b3":
+        pcfg = PPOConfig(k_epochs=3, fused_update=True)
+        tcfg = TrainConfig(num_envs=256, rollout_steps=16)
+        want = (0, 0, 3, 0)
+    else:
+        pcfg = PPOConfig(k_epochs=2, minibatch_size=1024, shuffle_block=256, fused_update=True,
+                         fused_adam=True)
+        tcfg = TrainConfig(num_envs=256, rollout_steps=16, fused_rollout=True)
+        want = (1, 0, 0, 8)
+    model, opt, state = ppo.ppo_init(0, env_cfg, pcfg, tcfg)
+    step = ppo.make_train_step(model, opt, env_cfg, pcfg, tcfg)
+    counters = (rf.fused_rollout, pf.fused_ppo_grad_t, pr.fused_ppo_grad, pr.fused_ppo_grad_adam)
+    for c in counters:
+        c.launches = 0
+    before = [p.detach().clone() for p in model.parameters()]
+    state, metrics = step(state)
+    torch.cuda.synchronize()
+    assert tuple(c.launches for c in counters) == want
     assert all(torch.isfinite(v).all() for v in metrics.values())
     assert any(not torch.equal(a, p) for a, p in zip(before, model.parameters()))

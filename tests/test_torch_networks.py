@@ -118,3 +118,41 @@ def test_load_solved_controller_needs_a_device_or_a_card():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             load_solved_controller()
+
+
+def test_learned_std_round_trips_through_flax():
+    """A flax tree with a learned ``log_std`` (JAX ActorCritic(learn_std=True))
+    gives a model whose forward returns that float32 log_std, and `to_flax`
+    gives the same tree back; `from_leaves` carries it too."""
+    from autonomous_quadrotor_environment_tpu_torch.agents.networks import to_flax
+
+    jmodel = JActorCritic(hidden=32, learn_std=True, action_std=0.2)
+    jparams = jax.tree_util.tree_map(
+        np.asarray, jmodel.init(jax.random.PRNGKey(4), jnp.zeros((1, 75)))
+    )
+    model = ActorCritic.from_flax(jparams, action_std=0.2)
+    assert model.learn_std
+    obs = _obs(2)
+    mean_j, _, log_std_j = jmodel.apply(jparams, jnp.asarray(obs))
+    mean_t, _, log_std_t = model(t(obs))
+    assert log_std_t.dtype == torch.float32 and log_std_t.requires_grad
+    assert log_std_t.item() == float(log_std_j) == np.float32(np.log(0.2))
+    np.testing.assert_allclose(n(mean_t), np.asarray(mean_j), atol=1e-5)
+    back = to_flax(model)
+    assert jax.tree_util.tree_structure(back) == jax.tree_util.tree_structure(jparams)
+    for a, b in zip(jax.tree_util.tree_leaves(back), jax.tree_util.tree_leaves(jparams)):
+        np.testing.assert_array_equal(a, b)
+    leaves = [p.detach() for layer in model.linears() for p in (layer.weight, layer.bias)]
+    again = ActorCritic.from_leaves(leaves, 0.2, log_std=model.log_std.detach())
+    assert again.learn_std and again.log_std.item() == model.log_std.item()
+    assert not ActorCritic.from_leaves(leaves, 0.2).learn_std
+
+
+def test_diag_gaussian_sample_is_mean_plus_std_noise():
+    from autonomous_quadrotor_environment_tpu_torch.agents.networks import DiagGaussian
+
+    mean = torch.randn(5, 4, generator=torch.Generator().manual_seed(0))
+    dist = DiagGaussian(mean, torch.tensor(np.log(0.3), dtype=torch.float32))
+    got = dist.sample(torch.Generator().manual_seed(1))
+    eps = torch.randn(5, 4, generator=torch.Generator().manual_seed(1))
+    torch.testing.assert_close(got, mean + 0.3 * eps)

@@ -126,7 +126,7 @@ for mod in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
 import chip_smoke
 assert callable(chip_smoke.main)
 mods = sorted(m for m in sys.modules if m.startswith(pkg.__name__))
-for name in ("agents.gae", "agents.ppo", "ops.ppo_fused_t", "ops.rollout_fused"):
+for name in ("agents.gae", "agents.ppo", "ops.ppo_fused", "ops.ppo_fused_t", "ops.rollout_fused"):
     assert pkg.__name__ + "." + name in mods, name
 print("imported", len(mods))
 """
@@ -138,7 +138,7 @@ def test_port_and_chip_smoke_import_nothing_of_jax():
         timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 16
+    assert int(proc.stdout.split()[-1]) >= 17
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])

@@ -103,6 +103,11 @@ def test_train_loop_equals_sequential_steps():
 
 
 def test_make_train_step_refuses_what_is_not_ported():
+    """Only what is still to be ported is refused: randomization (ROADMAP
+    A12) and bf16 products in a kernel. Every other configuration builds,
+    on the CPU at any width and tile; a state of another model, and a model
+    whose std disagrees with the config, are refused as in the JAX
+    package."""
     env_cfg = tcfg.EnvConfig()
     tc = tcfg.TrainConfig(num_envs=B, rollout_steps=STEPS, network_size=HIDDEN,
                           fused_rollout=True)
@@ -112,23 +117,35 @@ def test_make_train_step_refuses_what_is_not_ported():
     _, _, other = tppo.ppo_init(1, env_cfg, pcfg, tc, device="cpu")
     with pytest.raises(ValueError, match="state.model"):
         step(other)  # a state of another model is refused, not trained
-    cases = {
-        "A8/A12": [(pcfg, dataclasses.replace(tc, fused_rollout=False)),
+    robust = dataclasses.replace(
+        env_cfg, randomization=dataclasses.replace(env_cfg.randomization, enabled=True)
+    )
+    with pytest.raises(NotImplementedError, match="A12"):
+        tppo.make_train_step(model, opt, robust, pcfg, tc)
+    for p, tcc in [(dataclasses.replace(pcfg, fused_compute="bf16"), tc),
+                   (dataclasses.replace(pcfg, fused_compute="bf16", fused_adam=True),
+                    dataclasses.replace(tc, fused_rollout=False))]:
+        with pytest.raises(NotImplementedError, match="the rest of B1 and B2"):
+            tppo.make_train_step(model, opt, env_cfg, p, tcc)
+    # bf16 products matter only inside a kernel: the autograd branch runs.
+    tppo.make_train_step(model, opt, env_cfg,
+                         dataclasses.replace(pcfg, fused_compute="bf16", fused_update=False),
+                         dataclasses.replace(tc, fused_rollout=False))
+    # Formerly refused, now ported: the unfused rollout and update, the
+    # block-1 fallback, the Adam step in the kernel and a learned std.
+    for p, tcc in [(pcfg, dataclasses.replace(tc, fused_rollout=False)),
                    (dataclasses.replace(pcfg, fused_update=False), tc),
-                   (dataclasses.replace(pcfg, minibatch_size=60), tc)],
-        "B4": [(dataclasses.replace(pcfg, fused_adam=True), tc)],
-        "later": [(dataclasses.replace(pcfg, fused_compute="bf16"), tc)],
-    }
-    for item, configs in cases.items():
-        for p, tcc in configs:
-            with pytest.raises(NotImplementedError, match=item.split("/")[0]):
-                tppo.make_train_step(model, opt, env_cfg, p, tcc)
+                   (dataclasses.replace(pcfg, minibatch_size=60), tc),
+                   (dataclasses.replace(pcfg, fused_adam=True), tc)]:
+        tppo.make_train_step(model, opt, env_cfg, p, tcc)
+    learned = dataclasses.replace(pcfg, learn_std=True)
+    m2, o2, _ = tppo.ppo_init(0, env_cfg, learned, tc, device="cpu")
+    assert m2.learn_std and m2.log_std.dtype == torch.float32
+    tppo.make_train_step(m2, o2, env_cfg, learned, tc)
     with pytest.raises(ValueError, match="action_std"):
         tppo.make_train_step(model, opt, env_cfg, dataclasses.replace(pcfg, action_std=0.2), tc)
-    with pytest.raises(NotImplementedError, match="A6"):
-        tppo.ppo_init(0, env_cfg, dataclasses.replace(pcfg, learn_std=True), tc, device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        tppo.make_train_step(model, opt, env_cfg, dataclasses.replace(pcfg, learn_std=True), tc)
+    with pytest.raises(ValueError, match="learn_std"):
+        tppo.make_train_step(model, opt, env_cfg, learned, tc)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             tppo.ppo_init(0, env_cfg, pcfg, tc)

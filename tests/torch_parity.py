@@ -81,11 +81,48 @@ def assert_params_close(model, jparams, atol):
         )
 
 
-def jax_perms(key, k_epochs, n_blocks, n_mb):
-    """The block permutations the JAX package's `ppo_update_t` draws from
-    ``key``: (k_epochs, n_mb, n_blocks // n_mb)."""
+def jax_perms(key, k_epochs, n_blocks, n_mb, per_mb=None):
+    """The block permutations the JAX package's `ppo_update_t` and
+    `ppo_update` draw from ``key``: (k_epochs, n_mb, per_mb), ``per_mb``
+    blocks per minibatch (default n_blocks // n_mb)."""
     import jax
 
+    per_mb = per_mb or n_blocks // n_mb
     keys = jax.random.split(key, k_epochs)
     perms = [np.asarray(jax.random.permutation(k, n_blocks)) for k in keys]
-    return np.stack([p[: n_mb * (n_blocks // n_mb)].reshape(n_mb, -1) for p in perms])
+    return np.stack([p[: n_mb * per_mb].reshape(n_mb, per_mb) for p in perms])
+
+
+def jax_rollout_draws(jmodel, jparams, jstates, key, jenv_cfg, steps, reset_pool):
+    """The randomness of the JAX package's `rollout_batch` from ``key``, in
+    the port's `rollout_batch` form: the action noise (T, B, 4) and the
+    fresh episodes' initial states, (P, B, 13) from the reset pool or, with
+    ``reset_pool=0``, (T, B, 13): each env's fresh reset at each step, which
+    follows the env's key chain through JAX's own done flags. Also returns
+    JAX's ``(new_states, rollout, bootstrap)``."""
+    import jax
+
+    from autonomous_quadrotor_environment_tpu.agents.ppo import rollout_batch
+    from autonomous_quadrotor_environment_tpu.envs import hover as jhover
+
+    out = jax.jit(lambda p, s, k: rollout_batch(jmodel, p, s, k, jenv_cfg, steps,
+                                                reset_pool=reset_pool))(jparams, jstates, key)
+    b = np.asarray(jstates.x).shape[0]
+    init = jax.vmap(lambda k: jhover.random_initial_state(jax.random.split(k, 3)[1]))
+    split2 = jax.vmap(jax.random.split)
+    if reset_pool > 0:
+        k_pool, k_steps = jax.random.split(key)
+        fresh = init(jax.random.split(k_pool, reset_pool * b)).reshape(reset_pool, b, 13)
+    else:
+        k_steps = key
+        dones = np.asarray(out[1].dones)
+        reset = jax.jit(jax.vmap(lambda k: jhover.reset(k, jenv_cfg)))
+        keys, fresh = jstates.key, []
+        for step_i in range(steps):
+            k_env, k_reset = jax.numpy.moveaxis(split2(split2(keys)[:, 0]), 1, 0)
+            fresh.append(np.asarray(init(k_reset)))
+            keys = jax.numpy.where(dones[step_i][:, None], reset(k_reset).key, k_env)
+        fresh = np.stack(fresh)
+    noise = np.stack([np.asarray(jax.random.normal(k, (b, 4)))
+                      for k in jax.random.split(k_steps, steps)])
+    return noise, np.asarray(fresh), out
