@@ -1,10 +1,10 @@
-"""The configuration dataclasses and constants the port's hover slice and
-its PPO trainer read.
+"""The configuration dataclasses and constants the port's hover slice, its
+PPO trainer and the visual-landing eval read.
 
 A copy of the matching part of `autonomous_quadrotor_environment_tpu/config.py`
 (the port imports nothing of the JAX package); tests hold
-``dataclasses.asdict`` of `EnvConfig`, `PPOConfig` and `TrainConfig` equal on
-both sides so the copies cannot drift.
+``dataclasses.asdict`` of every config here equal on both sides so the
+copies cannot drift.
 """
 
 from __future__ import annotations
@@ -86,6 +86,23 @@ class RewardConfig:
     # Terminal rewards: added to the step reward (primary env) or replace it.
     terminal_replaces: bool = False
 
+    @staticmethod
+    def opt_variant() -> "RewardConfig":
+        """The visual-landing worker's env reward (reference
+        quadrotor_env_opt.py:62-69, :437-480): ~10x larger scale,
+        replace-style terminal rewards."""
+        return RewardConfig(
+            solved_reward=500.0,
+            broken_reward=-200.0,
+            shaping_coefs=(100.0, 100.0, 30.0),
+            p_c=1.0,
+            tr=(0.001, 0.01, 0.1),
+            tr_p=(300.0, 100.0, 10.0),
+            cascade_ang_all3=True,
+            cascade_ang_factor=2.0,
+            terminal_replaces=True,
+        )
+
 
 BB_POS = 5.0
 BB_VEL = 10.0
@@ -125,6 +142,39 @@ class EnvConfig:
     def max_steps(self) -> int:
         """Episode budget n + warmup."""
         return self.n_steps + self.warmup
+
+    @staticmethod
+    def landing_variant(training: bool = True) -> "EnvConfig":
+        """The opt env as the visual-landing worker uses it (reference
+        visual_landing/rl_worker.py:95: quad(0.01, 1500, 1, 5))."""
+        return EnvConfig(
+            dt=0.01,
+            n_steps=1500,
+            warmup=5,
+            training=training,
+            reward=RewardConfig.opt_variant(),
+            bb_ang_psi=4.0,
+            bb_ang_vel=BB_VEL * 3,
+            bb_scale=1.0 if training else 1000.0,
+            effort_is_force=True,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class SensorConfig:
+    """Sensor noise and bias drift (reference quadrotor_env.py:587-591)."""
+
+    accel_std: float = 0.1
+    accel_bias_drift: float = 0.0005
+    gyro_std: float = 0.035
+    gyro_bias_drift: float = 0.00015
+    magnet_std: float = 15.0
+    magnet_bias_drift: float = 0.075
+    gps_std_p: float = 1.71
+    gps_std_v: float = 0.5
+    enabled: bool = True          # reference `sensor.error` flag
+    # Santo Andre magnetic vector in mG*0.01 (reference quadrotor_env.py:651-653)
+    magnet_vec: tuple = (-40.47, 129.11, -98.99)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -191,3 +241,55 @@ class TrainConfig:
     # fresh-episode pool for auto-reset.
     fused_rollout: bool = False
     fused_pool: int = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class CameraConfig:
+    """The landing camera (reference img_2_cv.py:13-14): a 36x24 mm film
+    and 35 mm lens on an 84x84 buffer, so the pixels are anisotropic."""
+
+    width: int = 84
+    height: int = 84
+    film_w: float = 36.0          # mm
+    film_h: float = 24.0
+    focal: float = 35.0           # mm
+
+    @property
+    def fx(self) -> float:
+        """Focal length in pixels along x."""
+        return self.focal / self.film_w * self.width
+
+    @property
+    def fy(self) -> float:
+        return self.focal / self.film_h * self.height
+
+
+@dataclasses.dataclass(frozen=True)
+class MarkerConfig:
+    """Checkerboard landing marker (reference ppo_world_setup.py:97-103,
+    computer_vision/detector_setup.py:10-15)."""
+
+    cols: int = 9                 # inner corners
+    rows: int = 6
+    scale: float = 0.5
+    sqr_size: float = 0.2046
+
+    @property
+    def square(self) -> float:
+        """World-space square side = scale * sqr_size."""
+        return self.scale * self.sqr_size
+
+
+@dataclasses.dataclass(frozen=True)
+class LandingConfig:
+    """Hierarchical visual-landing task (reference rl_worker.py:25-66)."""
+
+    total_steps: int = 1500       # physics steps per episode
+    task_interval: int = 10       # physics steps per policy decision
+    velocity_scale: tuple = (0.5, 0.5, 1.0)
+    velocity_d: tuple = (0.0, 0.0, -1.0 / 1.5)
+    image_size: int = 84
+    image_channels: int = 3
+    ground_z: float = -5.0        # landing plane in env world coords
+    marker_std: float = 0.8       # marker position N(0, 0.8) in xy
+    eval_episodes: int = 100      # reference rl_eval_worker.py:43

@@ -1,4 +1,12 @@
-from .quaternion import deriv_quat, euler_quat, quat_euler, quat_normalize, quat_rot_mat
+from .quaternion import (
+    deriv_quat,
+    euler_quat,
+    quat_euler,
+    quat_mul,
+    quat_normalize,
+    quat_rot_mat,
+    rot_mat_quat,
+)
 from .dynamics import (
     MotorOutput,
     StepAux,
@@ -24,9 +32,11 @@ __all__ = [
     "f2w",
     "physics_step",
     "quat_euler",
+    "quat_mul",
     "quat_normalize",
     "quat_rot_mat",
     "rk4",
+    "rot_mat_quat",
     "rotor_gyro_speed",
     "zeros_domain",
 ]

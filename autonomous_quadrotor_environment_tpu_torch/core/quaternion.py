@@ -77,3 +77,53 @@ def quat_rot_mat(q: torch.Tensor) -> torch.Tensor:
 def quat_normalize(q: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     """Normalize quaternion(s) along the last axis."""
     return q / torch.clamp_min(torch.linalg.vector_norm(q, dim=-1, keepdim=True), eps)
+
+
+def rot_mat_quat(r: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix ``[..., 3, 3]`` -> quaternion ``[w, x, y, z]``.
+
+    Branch-free Shepperd extraction, as the JAX package's: all four
+    candidate quaternions, the one with the largest pivot kept (ties go to
+    the first, as `jnp.argmax` breaks them), normalized, scalar part made
+    non-negative."""
+    m00, m01, m02 = r[..., 0, 0], r[..., 0, 1], r[..., 0, 2]
+    m10, m11, m12 = r[..., 1, 0], r[..., 1, 1], r[..., 1, 2]
+    m20, m21, m22 = r[..., 2, 0], r[..., 2, 1], r[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    qw = torch.stack([1.0 + tr, m21 - m12, m02 - m20, m10 - m01], dim=-1)
+    qx = torch.stack([m21 - m12, 1.0 + m00 - m11 - m22, m01 + m10, m02 + m20], dim=-1)
+    qy = torch.stack([m02 - m20, m01 + m10, 1.0 - m00 + m11 - m22, m12 + m21], dim=-1)
+    qz = torch.stack([m10 - m01, m02 + m20, m12 + m21, 1.0 - m00 - m11 + m22], dim=-1)
+    pivots = torch.stack(
+        [1.0 + tr, 1.0 + m00 - m11 - m22, 1.0 - m00 + m11 - m22, 1.0 - m00 - m11 + m22],
+        dim=-1,
+    )
+    # First index of the maximum: `torch.argmax` does not promise which tie
+    # it returns, so compare against the running best explicitly.
+    best = torch.zeros_like(pivots[..., 0], dtype=torch.long)
+    best_val = pivots[..., 0]
+    for i in range(1, 4):
+        better = pivots[..., i] > best_val
+        best = torch.where(better, i, best)
+        best_val = torch.where(better, pivots[..., i], best_val)
+    cands = torch.stack([qw, qx, qy, qz], dim=-2)  # [..., 4, 4]
+    idx = best[..., None, None].expand(best.shape + (1, 4))
+    q = torch.gather(cands, -2, idx)[..., 0, :]
+    q = quat_normalize(q)
+    return q * torch.where(q[..., :1] < 0, -1.0, 1.0)
+
+
+def quat_mul(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Hamilton product of two ``[w, x, y, z]`` quaternions (broadcasting)."""
+    pw, px, py, pz = p[..., 0], p[..., 1], p[..., 2], p[..., 3]
+    qw, qx, qy, qz = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack(
+        [
+            pw * qw - px * qx - py * qy - pz * qz,
+            pw * qx + px * qw + py * qz - pz * qy,
+            pw * qy - px * qz + py * qw + pz * qx,
+            pw * qz + px * qy - py * qx + pz * qw,
+        ],
+        dim=-1,
+    )

@@ -2,8 +2,11 @@
 
 ``nn_solved_128_0.msgpack`` is the shipped state controller (ActorCritic,
 hidden=128): 100% solved, mean reward 26.8 over 40 deterministic episodes
-in the JAX package's eval. The port reads the file by path; it imports
-nothing of the JAX package.
+in the JAX package's eval. ``landing_policy.msgpack`` is the shipped
+landing CNN policy (LandingActorCritic, plain first-conv layout, float16
+leaves): 100%/98% solved on the 100-episode landing benchmark at seeds 0/7
+in the JAX package (reference bar 93.5%). The port reads the files by
+path; it imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from ..utils.checkpoint import load_params
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 FIXTURE_DIR = os.path.join(_REPO, "autonomous_quadrotor_environment_tpu", "fixtures")
 SOLVED_CONTROLLER = os.path.join(FIXTURE_DIR, "nn_solved_128_0.msgpack")
+LANDING_POLICY = os.path.join(FIXTURE_DIR, "landing_policy.msgpack")
 
 
 def load_solved_controller(device=None) -> ActorCritic:
@@ -25,3 +29,14 @@ def load_solved_controller(device=None) -> ActorCritic:
     dev = resolve_device(device)
     model = ActorCritic.from_flax(load_params(SOLVED_CONTROLLER))
     return model.to(dev).eval()
+
+
+def load_landing_policy(device=None):
+    """The shipped landing CNN policy as a `LandingActorCritic` on
+    ``device`` (the CUDA card when None), in eval mode."""
+    from ..landing.networks import LandingActorCritic
+
+    dev = resolve_device(device)
+    if not os.path.exists(LANDING_POLICY):
+        raise FileNotFoundError(f"the landing policy fixture is missing: {LANDING_POLICY}")
+    return LandingActorCritic.from_flax(load_params(LANDING_POLICY)).to(dev).eval()

@@ -42,6 +42,9 @@ SIGNATURES = {
         "ppo_fused": _ROWS + [_I, _P],
         "ppo_fused_adam": _ROWS + [_P] + [_F] * 6 + [_I, _P],  # + the 36 leaves, Adam consts
     },
+    # quad, marker, brightness, out; B, H, W; fx, fy, cx, cy, square,
+    # half_w, half_h, ground_z
+    "render_nadir": {"render_nadir": [_P] * 4 + [_I] * 3 + [_F] * 8 + [_I, _P]},
 }
 
 

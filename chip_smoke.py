@@ -7,9 +7,10 @@ PyTorch built for CUDA:
 
 It imports nothing of JAX. Each phase prints one flushed JSON line:
 
-1. build: nvcc builds the three kernel sources, `ops/csrc/rollout_fused.cu`,
-   `ops/csrc/ppo_fused_t.cu` and `ops/csrc/ppo_fused.cu`, in parallel;
-   ptxas's registers and spills, and each library's shared memory.
+1. build: nvcc builds the four kernel sources, `ops/csrc/rollout_fused.cu`,
+   `ops/csrc/ppo_fused_t.cu`, `ops/csrc/ppo_fused.cu` and
+   `ops/csrc/render_nadir.cu`, in parallel; ptxas's registers and spills,
+   and each library's shared memory.
 2. kernel_vs_plain: the rollout kernel against its plain PyTorch version on
    the same CUDA tensors (B=1024, T=32, P=4, seeded weights and noise), at
    the default bounding box and at bb_scale=0.15, where resets and pool
@@ -28,31 +29,48 @@ It imports nothing of JAX. Each phase prints one flushed JSON line:
    rows, tile 128, every block: where train_rowmajor (a) runs B3 and
    learn_rowmajor B4); B4 from a warmed Adam state, and from an empty one
    with its sign flips counted; times and bounds at both large shapes.
-5. slice: the shipped solved controller through `rollout_batch_fused` at
+5. render_vs_plain: the render kernel (B5) against its plain version on the
+   same CUDA tensors at B=100 and B=4096 seeded poses (heights 0.01-7 m,
+   markers N(0, 0.8), brightness 0.5-1.2): max abs error, pixels above
+   1e-5, a bit-equal relaunch; times against the bound.
+6. slice: the shipped solved controller through `rollout_batch_fused` at
    the bench shape (B=8192 envs, T=256 steps, P=4) with the launch counter
    set to 0 just before and read just after; then the kernel against the
    plain version at that shape, and the times of both.
-6. fly: 256 deterministic episodes of the solved controller (zero noise,
+7. fly: 256 deterministic episodes of the solved controller (zero noise,
    T=1000 steps); each env's first episode must be solved in >= 90% of envs.
-7. train: the fully fused PPO train step at bench.py's configuration
+8. landing_vs_plain: 8 decisions of the landing env at B=100 with the
+   shipped policy and controller, once through B5 and once with the plain
+   renderer patched in, from the same draws: images, actions and states
+   compared; where a decision's time goes, and one profiled decision.
+9. land: the landing benchmark through `apps.eval_landing.main` (100
+   episodes, seed 0, with the oracle) with every launch counter set to 0
+   just before and read just after (153 B5 launches: 1 reset batch and 152
+   decisions); eval_solved >= 0.93, eval_finished == 1, oracle_solved >=
+   0.95; the eval's and the oracle's seconds.
+10. train: the fully fused PPO train step at bench.py's configuration
    (8192 x 256, K=10, quarter-batch minibatches, tile 1024) through
    `ppo_init` and `make_train_step`, 3 steps, each with both launch counters
    set to 0 just before and read just after (1 rollout and 40 gradient
    launches per step); where the step's time goes.
-8. train_rowmajor: the row-major train step, 3 steps each with every
+11. train_rowmajor: the row-major train step, 3 steps each with every
    launch counter set to 0 just before and read just after, at (a) the
    trainer's defaults with fused_update (1024 x 128, per-step auto-reset,
    full batch, tile 128: 10 B3 launches a step), where the rollout and the
    update are also timed apart, and the trainer's own defaults (autograd
    update) are timed per update; (b) bench.py's shape with the rollout
    kernel and fused_adam (1 B1 and 40 B4 launches a step).
-9. learn: training from scratch at the trainer's defaults (1024 x 128,
+12. learn: training from scratch at the trainer's defaults (1024 x 128,
    K=10, full batch, lr 5e-4) on the fully fused path with a deterministic
    256-episode eval every 100 updates, until eval_solved >= 0.8; it fails if
    no eval reaches it by update 600.
-10. learn_rowmajor: the same from scratch with the rollout kernel and the
+13. learn_rowmajor: the same from scratch with the rollout kernel and the
    Adam step inside B4 (1 B1 and 10 B4 launches an update), evaluated at
    update 400 and every 100 after, to the same bar.
+
+The landing phases need `autonomous_quadrotor_environment_tpu/fixtures/
+landing_policy.msgpack` in the checkout; without it the script stops at
+once with a message.
 
 Then the kernels line, the card's name and power limit from nvidia-smi, and
 as the last line {"ok": true, "device": {...}}. Any failure raises, exits
@@ -65,6 +83,7 @@ import copy
 import dataclasses
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -82,10 +101,18 @@ from autonomous_quadrotor_environment_tpu_torch.agents.ppo import (
 )
 from autonomous_quadrotor_environment_tpu_torch.config import EnvConfig, PPOConfig, TrainConfig
 from autonomous_quadrotor_environment_tpu_torch.envs import hover
-from autonomous_quadrotor_environment_tpu_torch.fixtures import load_solved_controller
+from autonomous_quadrotor_environment_tpu_torch.fixtures import (
+    LANDING_POLICY,
+    SOLVED_CONTROLLER,
+    load_landing_policy,
+    load_solved_controller,
+)
+from autonomous_quadrotor_environment_tpu_torch.envs.sensors import SensorNoise, draw_sensor_noise
+from autonomous_quadrotor_environment_tpu_torch.landing import env as lenv
 from autonomous_quadrotor_environment_tpu_torch.ops import _build
 from autonomous_quadrotor_environment_tpu_torch.ops import ppo_fused as pr
 from autonomous_quadrotor_environment_tpu_torch.ops import ppo_fused_t as pf
+from autonomous_quadrotor_environment_tpu_torch.ops import render_kernel as rk
 from autonomous_quadrotor_environment_tpu_torch.ops import rollout_fused as rf
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
@@ -102,7 +129,18 @@ LEARN_B, LEARN_T, LEARN_LR = 1024, 128, 5e-4
 LEARN_EVAL_EVERY, LEARN_MAX_UPDATES, LEARN_EPISODES, LEARN_SOLVED = 100, 600, 256, 0.8
 LEARN_SEED = 0  # fixed before the first run on the card
 LEARN_ROWMAJOR_FIRST_EVAL = 400  # the row-major learn phase evaluates from here on
-LIBRARIES = ("rollout_fused", "ppo_fused_t", "ppo_fused")  # one nvcc each
+# The landing benchmark: episodes, and the decisions its eval runs
+# (total_steps // task_interval + 2), so 1 reset batch + 152 B5 launches.
+LAND_EPISODES, LAND_DECISIONS = 100, 152
+LAND_SOLVED, ORACLE_SOLVED = 0.93, 0.95  # the reference's 93.5% bar; the oracle's
+RENDER_BATCHES = (100, 4096)  # the eval's batch, and a large one
+# Float operations of the render kernel per pixel, each sinf/cosf counted
+# as one (which keeps the bound a lower bound): 2 for the height, 8 for
+# the hit point, 2 for the footprint, 2+2 offsets, 2x18 for the square
+# waves, 7 for the checker value, 2+24 for the board and border masks, 12
+# for the ground wave, 4 for the board color, 3x9 for the channels.
+RENDER_OPS_PER_PIXEL = 128
+LIBRARIES = ("rollout_fused", "ppo_fused_t", "ppo_fused", "render_nadir")  # one nvcc each
 _CSRC = "autonomous_quadrotor_environment_tpu_torch/ops/csrc/"
 _TPU = "autonomous_quadrotor_environment_tpu/ops/"
 KERNELS = {
@@ -110,6 +148,7 @@ KERNELS = {
     "ppo_fused_t": (_CSRC + "ppo_fused_t.cu", _TPU + "ppo_fused_t.py:211"),
     "ppo_fused": (_CSRC + "ppo_fused.cu", _TPU + "ppo_fused.py:331"),
     "ppo_fused_adam": (_CSRC + "ppo_fused.cu", _TPU + "ppo_fused.py:452"),
+    "render_nadir": (_CSRC + "render_nadir.cu", _TPU + "render_kernel.py:143"),
 }
 # Each kernel's wrapper, whose `.launches` counts its launches.
 COUNTERS = {
@@ -117,6 +156,7 @@ COUNTERS = {
     "ppo_fused_t": pf.fused_ppo_grad_t,
     "ppo_fused": pr.fused_ppo_grad,
     "ppo_fused_adam": pr.fused_ppo_grad_adam,
+    "render_nadir": rk.render_nadir_batch,
 }
 
 
@@ -1124,9 +1164,241 @@ def phase_train_rowmajor(fused_warm_step_ms: float) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The landing benchmark (B5)
+# ---------------------------------------------------------------------------
+
+
+def render_poses(b: int, seed: int):
+    """Seeded render inputs on the card: heights 0.01-7 m above the ground
+    at z = -5, markers N(0, 0.8), brightness 0.5-1.2."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    z = torch.rand(b, generator=g, device=DEVICE) * (7.0 - 0.01) + 0.01 - 5.0
+    xy = torch.randn(b, 2, generator=g, device=DEVICE)
+    quad = torch.cat([xy, z[:, None]], dim=1).contiguous()
+    marker = torch.randn(b, 2, generator=g, device=DEVICE) * 0.8
+    bright = torch.rand(b, generator=g, device=DEVICE) * 0.7 + 0.5
+    return quad, marker, bright
+
+
+def render_bound(b: int, brightness: bool) -> tuple[float, str, float, float]:
+    """The least time the card could take for one render: the larger of the
+    bytes (each env's 5 or 6 input floats read once, the (B, 3, 84, 84)
+    float32 image written once) over the memory rate, and
+    RENDER_OPS_PER_PIXEL float operations per pixel over the f32 peak."""
+    pixels = float(b) * 84 * 84
+    bytes_ = 4.0 * (b * (6 if brightness else 5) + 3 * pixels)
+    ops = RENDER_OPS_PER_PIXEL * pixels
+    t_ops, t_bytes = ops / PEAK_F32_FLOPS, bytes_ / PEAK_HBM_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes"), ops, bytes_
+
+
+def phase_render_vs_plain() -> dict:
+    """B5 against its plain version on the same CUDA tensors at B=100 (the
+    eval's batch) and B=4096; tolerance atol 1e-4: the image is continuous
+    in the pose (the smooth steps blend across every edge), so FMA
+    contraction and the sin/cos libraries move pixels by a little, most
+    near the ground, where a footprint of height/fx makes the edges
+    steepest; the count of pixels above 1e-5 is reported. A relaunch must
+    be bit-equal. Times by CUDA events against the bound."""
+    t0 = time.perf_counter()
+    runs = []
+    for b in RENDER_BATCHES:
+        quad, marker, bright = render_poses(b, seed=20 + b)
+        got = rk.render_nadir_batch(quad, marker, brightness=bright)
+        again = rk.render_nadir_batch(quad, marker, brightness=bright)
+        sync()
+        want = rk.render_nadir_batch_plain(quad, marker, brightness=bright)
+        sync()
+        if got.shape != (b, 3, 84, 84) or not torch.isfinite(got).all():
+            raise AssertionError(f"B5 at B={b}: bad shape {tuple(got.shape)} or non-finite")
+        if got.min().item() < 0.0 or got.max().item() > 1.0:
+            raise AssertionError(f"B5 at B={b}: pixels outside [0, 1]")
+        diff = (got - want).abs()
+        max_err = diff.max().item()
+        if max_err > 1e-4:
+            raise AssertionError(f"B5 at B={b}: max abs err {max_err:.3e} > 1e-4")
+        if not torch.equal(got, again):
+            raise AssertionError(f"B5 at B={b}: a relaunch is not bit-equal")
+        ms = time_cuda(lambda: rk.render_nadir_batch(quad, marker, brightness=bright), 10, 200)
+        plain_ms = time_cuda(lambda: rk.render_nadir_batch_plain(quad, marker, brightness=bright),
+                             2, 10)
+        bound_ms, bound_by, ops, bytes_ = render_bound(b, brightness=True)
+        runs.append({
+            "B": b, "max_abs_err": max_err, "pixels_above_1e-5": int((diff > 1e-5).sum()),
+            "pixels": diff.numel(), "bit_equal_relaunch": True,
+            "min_height_m": (quad[:, 2] + 5.0).min().item(),
+            "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes": bytes_, "ops": ops, "achieved_bytes_per_s": bytes_ / (ms / 1e3),
+        })
+    out = {"phase": "render_vs_plain", "seconds": time.perf_counter() - t0, "card": card(),
+           "atol": 1e-4, "runs": runs}
+    emit(out)
+    return out
+
+
+def _landing_run(policy, ctrl, cfgs, draws, noise, decisions: int):
+    """A reset from ``draws`` and ``decisions`` policy decisions, each
+    interval's sensor noise taken from ``noise`` in turn; returns the final
+    state and each decision's images and actions."""
+    ti = cfgs.landing.task_interval
+    frames = lambda k: SensorNoise(noise.normal[k * ti:(k + 1) * ti],
+                                   noise.uniform[k * ti:(k + 1) * ti])
+    state, obs = lenv.landing_reset(None, cfgs, ctrl, draws=draws, noise=frames(0))
+    images, actions, rewards = [obs.image], [], []
+    with torch.no_grad():
+        for d in range(decisions):
+            action = policy.actor(obs.image, obs.control_in)
+            state, out = lenv.landing_step(state, action, cfgs, ctrl, noise=frames(d + 1))
+            obs = out.obs
+            images.append(obs.image)
+            actions.append(action)
+            rewards.append(out.reward)
+    sync()
+    return state, torch.stack(images), torch.stack(actions), torch.stack(rewards)
+
+
+def phase_landing_vs_plain(decisions: int = 8) -> dict:
+    """8 decisions of the landing env at B=100 on the card, run once through
+    B5 and once with the plain renderer patched in (this phase only), from
+    the same reset draws and sensor noise, each run's policy acting on its
+    own images. Images within atol 1e-4 (B5's tolerance); actions within
+    1e-4 and the physics state within rtol = atol = 1e-4 (image differences
+    of 1e-4 on a few edge pixels, through the CNN and 80 closed-loop
+    frames); done and solved equal. Then, warm, where a decision's time
+    goes, and one profiled decision."""
+    t0 = time.perf_counter()
+    cfgs = lenv.LandingConfigs.default(training=False)
+    ctrl = load_solved_controller(DEVICE)
+    policy = load_landing_policy(DEVICE)
+    b, ti = LAND_EPISODES, cfgs.landing.task_interval
+    gen = torch.Generator(device=DEVICE).manual_seed(30)
+    draws = lenv.draw_reset(gen, b)
+    noise = draw_sensor_noise(gen, ((decisions + 1) * ti, b))
+
+    rk.render_nadir_batch.launches = 0
+    sk, ik, ak, rwk = _landing_run(policy, ctrl, cfgs, draws, noise, decisions)
+    kernel_launches = rk.render_nadir_batch.launches
+    lenv.render_nadir_batch = rk.render_nadir_batch_plain
+    try:
+        sp, ip, ap, rwp = _landing_run(policy, ctrl, cfgs, draws, noise, decisions)
+    finally:
+        lenv.render_nadir_batch = rk.render_nadir_batch
+    if kernel_launches != decisions + 1 or rk.render_nadir_batch.launches != decisions + 1:
+        raise AssertionError(f"B5 launched {kernel_launches} times for {decisions} decisions")
+    errs = {
+        "image": (ik - ip).abs().max().item(),
+        "action": (ak - ap).abs().max().item(),
+        "reward": (rwk - rwp).abs().max().item(),
+        "x": ((sk.env.x - sp.env.x).abs() / (1.0 + sp.env.x.abs())).max().item(),
+        "hist": ((sk.hist - sp.hist).abs() / (1.0 + sp.hist.abs())).max().item(),
+        "ins_pos": ((sk.sens.pos_ins - sp.sens.pos_ins).abs()
+                    / (1.0 + sp.sens.pos_ins.abs())).max().item(),
+    }
+    for name, err in errs.items():
+        if not math.isfinite(err) or err > 1e-4:
+            raise AssertionError(f"landing_vs_plain: {name} differs by {err:.3e} > 1e-4")
+    if not (torch.equal(sk.done, sp.done)):
+        raise AssertionError("landing_vs_plain: done flags differ")
+
+    # Warm times at B=100: one decision (host clock, closed by a sync), the
+    # policy's forward and the render (CUDA events), and one profiled
+    # decision for the device's busy share.
+    with torch.no_grad():
+        obs_img = ik[-1]
+        action = policy.actor(obs_img, sk.hist)
+        decision = lambda: lenv.landing_step(sk, action, cfgs, ctrl, gen)
+        decision_ms = host_ms(decision, runs=3)
+        interval_ms = host_ms(lambda: lenv._inner_interval(
+            sk, cfgs, ctrl, lenv.draw_interval(gen, cfgs, b)), runs=3)
+        policy_ms = time_cuda(lambda: policy.actor(obs_img, sk.hist), 3, 20)
+        quad = sk.env.x[:, 0:5:2].contiguous()
+        mxy = sk.marker_world[:, 0:2].contiguous()
+        render_ms = time_cuda(lambda: rk.render_nadir_batch(quad, mxy), 10, 200)
+        _, prof = profile_step(lambda st: lenv.landing_step(st, action, cfgs, ctrl, gen), sk)
+    out = {
+        "phase": "landing_vs_plain", "seconds": time.perf_counter() - t0, "card": card(),
+        "B": b, "decisions": decisions, "b5_launches": kernel_launches, "errors": errs,
+        "dones": int(sk.done.sum()),
+        "decision_ms": decision_ms, "inner_interval_ms": interval_ms,
+        "inner_frame_ms": interval_ms / ti, "policy_actor_ms": policy_ms,
+        "render_kernel_ms": render_ms,
+        "share_inner_interval": interval_ms / decision_ms,
+        "share_policy": policy_ms / decision_ms, "share_render": render_ms / decision_ms,
+        "profile": prof,
+    }
+    emit(out)
+    return out
+
+
+def phase_land() -> dict:
+    """The landing benchmark through its entry point,
+    `apps.eval_landing.main`, at 100 episodes, seed 0, with the oracle:
+    every launch counter set to 0 just before and read just after (1 reset
+    batch + 152 decisions = 153 B5 launches, nothing else). Passes at
+    eval_solved >= 0.93 (the reference's 93.5% bar), eval_finished == 1 and
+    oracle_solved >= 0.95. The eval's and the oracle's seconds are timed
+    around the app's own calls."""
+    from autonomous_quadrotor_environment_tpu_torch.apps import eval_landing
+
+    t0 = time.perf_counter()
+    seconds = {}
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            sync()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            out = {k: v.item() for k, v in out.items()}
+            seconds[name] = time.perf_counter() - t
+            return out
+        return call
+
+    make_eval = eval_landing.make_landing_eval_fn
+    oracle = eval_landing.oracle_landing_eval
+    eval_landing.make_landing_eval_fn = lambda *a, **k: timed("eval", make_eval(*a, **k))
+    eval_landing.oracle_landing_eval = timed("oracle", oracle)
+    argv = ["--controller", SOLVED_CONTROLLER, "--policy", LANDING_POLICY,
+            "--episodes", str(LAND_EPISODES), "--seed", "0", "--oracle"]
+    try:
+        zero_counters()
+        results = eval_landing.main(argv)
+        sync()
+        launches = read_counters()
+    finally:
+        eval_landing.make_landing_eval_fn = make_eval
+        eval_landing.oracle_landing_eval = oracle
+    decisions = LAND_EPISODES * LAND_DECISIONS
+    out = {
+        "phase": "land", "seconds": time.perf_counter() - t0, "card": card(),
+        "argv": argv, "results": results, "launches": launches,
+        "eval_seconds": seconds.get("eval"), "oracle_seconds": seconds.get("oracle"),
+        "decisions": decisions,
+        "decisions_per_s": decisions / seconds["eval"],
+        "ms_per_decision_step": 1e3 * seconds["eval"] / LAND_DECISIONS,
+    }
+    emit(out)
+    want = launches_want(render_nadir=1 + LAND_DECISIONS)
+    if launches != want:
+        raise AssertionError(f"the landing eval launched {launches}, want {want}")
+    for k, v in results.items():
+        if not math.isfinite(v):
+            raise AssertionError(f"{k} is not finite: {v}")
+    if results["eval_solved"] < LAND_SOLVED or results["eval_finished"] != 1.0:
+        raise AssertionError(f"the shipped policy scored {results}, want eval_solved >= "
+                             f"{LAND_SOLVED} and eval_finished == 1")
+    if results["oracle_solved"] < ORACLE_SOLVED:
+        raise AssertionError(f"the oracle solved {results['oracle_solved']} < {ORACLE_SOLVED}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    if not os.path.exists(LANDING_POLICY):
+        print(f"chip_smoke: the landing policy fixture is missing: {LANDING_POLICY}; the "
+              "landing phases need it in the checkout", file=sys.stderr)
         return 1
     # Plain-version products in full f32, as the kernels compute them.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1136,13 +1408,16 @@ def main() -> int:
     kvp = phase_kernel_vs_plain()
     gvp = phase_grad_t_vs_plain()
     rvp = phase_grad_vs_plain()
+    rnd = phase_render_vs_plain()
     sl = phase_slice()
     fly = phase_fly()
+    lvp = phase_landing_vs_plain()
+    land = phase_land()
     tr = phase_train()
     trr = phase_train_rowmajor(tr["warm_step_ms"])
     ln = phase_learn()
     lnr = phase_learn("learn_rowmajor", LEARN_ROWMAJOR_FIRST_EVAL, fused_adam=True)
-    for out in (kvp, gvp, rvp, sl, fly, tr, trr, ln, lnr):
+    for out in (kvp, gvp, rvp, rnd, sl, fly, lvp, land, tr, trr, ln, lnr):
         seconds[out["phase"]] = out["seconds"]
     max_err = max([r["max_abs_err"] for r in kvp["runs"]] + [sl["compare"]["max_abs_err"]])
     fused = tr["launches_per_step"][-1]
@@ -1159,6 +1434,9 @@ def main() -> int:
     # are counted in: B3 at train_rowmajor (a)'s full batch, B4 at (b)'s
     # bench minibatch.
     b3, b4 = rvp["trainer_times"], rvp["bench_times"]
+    # B5's times and bound at the eval's B=100, its error over the sweep.
+    b5 = next(r for r in rnd["runs"] if r["B"] == LAND_EPISODES)
+    b5_err = max(r["max_abs_err"] for r in rnd["runs"])
     emit({"kernels": [
         entry("rollout_fused", fused["rollout_fused"], max_err, sl["kernel_ms"],
               sl["plain_ms"], sl["bound_ms"], sl["bound_by"]),
@@ -1168,6 +1446,8 @@ def main() -> int:
               b3["b3_plain_ms"], b3["b3_bound_ms"], b3["b3_bound_by"]),
         entry("ppo_fused_adam", with_adam["ppo_fused_adam"], rvp["b4_max_abs_err"],
               b4["b4_ms"], b4["b4_plain_ms"], b4["b4_bound_ms"], b4["b4_bound_by"]),
+        entry("render_nadir", land["launches"]["render_nadir"], b5_err, b5["kernel_ms"],
+              b5["plain_ms"], b5["bound_ms"], b5["bound_by"]),
     ], "seconds": time.perf_counter() - t0, "phase_seconds": seconds})
     print(card(), flush=True)
     emit({"ok": True, "device": {

@@ -27,6 +27,20 @@ B = 16
 def test_env_config_copy_equals_jax():
     assert dataclasses.asdict(tcfg.EnvConfig()) == dataclasses.asdict(jcfg.EnvConfig())
     assert (tcfg.BB_POS, tcfg.BB_VEL, tcfg.BB_ANG) == (jcfg.BB_POS, jcfg.BB_VEL, jcfg.BB_ANG)
+    for name in ("SensorConfig", "CameraConfig", "MarkerConfig", "LandingConfig"):
+        assert dataclasses.asdict(getattr(tcfg, name)()) == dataclasses.asdict(
+            getattr(jcfg, name)()
+        ), name
+    assert dataclasses.asdict(tcfg.RewardConfig.opt_variant()) == dataclasses.asdict(
+        jcfg.RewardConfig.opt_variant()
+    )
+    for training in (True, False):
+        assert dataclasses.asdict(tcfg.EnvConfig.landing_variant(training)) == dataclasses.asdict(
+            jcfg.EnvConfig.landing_variant(training)
+        )
+    for prop in ("fx", "fy"):
+        assert getattr(tcfg.CameraConfig(), prop) == getattr(jcfg.CameraConfig(), prop)
+    assert tcfg.MarkerConfig().square == jcfg.MarkerConfig().square
 
 
 @pytest.mark.parametrize(

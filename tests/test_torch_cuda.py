@@ -20,6 +20,7 @@ from autonomous_quadrotor_environment_tpu_torch.config import EnvConfig, PPOConf
 from autonomous_quadrotor_environment_tpu_torch.envs import hover
 from autonomous_quadrotor_environment_tpu_torch.ops import ppo_fused as pr
 from autonomous_quadrotor_environment_tpu_torch.ops import ppo_fused_t as pf
+from autonomous_quadrotor_environment_tpu_torch.ops import render_kernel as rk
 from autonomous_quadrotor_environment_tpu_torch.ops import rollout_fused as rf
 
 pytestmark = pytest.mark.cuda
@@ -336,3 +337,69 @@ def test_rowmajor_train_step_launches_its_kernels(card, which):
     assert tuple(c.launches for c in counters) == want
     assert all(torch.isfinite(v).all() for v in metrics.values())
     assert any(not torch.equal(a, p) for a, p in zip(before, model.parameters()))
+
+
+def _poses(card, b, seed=0):
+    """Seeded render inputs: heights 0.01-7 m above the ground at z = -5,
+    markers N(0, 0.8), brightness 0.5-1.2."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    z = torch.rand(b, generator=g, device=card) * (7.0 - 0.01) + 0.01 - 5.0
+    xy = torch.randn(b, 2, generator=g, device=card)
+    quad = torch.cat([xy, z[:, None]], dim=1).contiguous()
+    marker = torch.randn(b, 2, generator=g, device=card) * 0.8
+    bright = torch.rand(b, generator=g, device=card) * 0.7 + 0.5
+    return quad, marker, bright
+
+
+@pytest.mark.parametrize("b", [1, 37, 300])
+def test_render_kernel_matches_plain(card, b):
+    """atol 1e-4 (chip_smoke.py's render_vs_plain tolerance): the image is
+    continuous in the pose, so FMA contraction and the sin/cos libraries
+    move pixels a little, most near the ground where the edges are
+    sharpest; one relaunch gives the same bits."""
+    quad, marker, bright = _poses(card, b)
+    before = rk.render_nadir_batch.launches
+    got = rk.render_nadir_batch(quad, marker, brightness=bright)
+    again = rk.render_nadir_batch(quad, marker, brightness=bright)
+    torch.cuda.synchronize()
+    assert rk.render_nadir_batch.launches == before + 2
+    want = rk.render_nadir_batch_plain(quad, marker, brightness=bright)
+    assert got.shape == (b, 3, 84, 84) and got.is_contiguous()
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    assert torch.equal(got, again)
+    # No brightness (the landing env's call), another ground height.
+    torch.testing.assert_close(rk.render_nadir_batch(quad, marker, ground_z_env=-4.5),
+                               rk.render_nadir_batch_plain(quad, marker, ground_z_env=-4.5),
+                               atol=1e-4, rtol=0)
+
+
+def test_render_kernel_refuses_what_it_does_not_take(card):
+    quad, marker, bright = _poses(card, 8)
+    with pytest.raises(ValueError):
+        rk.render_nadir_batch(quad.double(), marker)
+    with pytest.raises(ValueError):
+        rk.render_nadir_batch(quad, marker.double())
+    with pytest.raises(ValueError):
+        rk.render_nadir_batch(quad, marker, brightness=bright.cpu())
+    with pytest.raises(ValueError):
+        rk.render_nadir_batch(quad, marker[:4])
+    with pytest.raises(ValueError):
+        rk.render_nadir_batch(torch.zeros(8, 13, device=card)[:, 0:5:2], marker)
+
+
+def test_landing_decisions_render_through_the_kernel(card):
+    """A reset batch and each decision launch B5 once; the image is the
+    plain renderer's within 1e-4."""
+    from autonomous_quadrotor_environment_tpu_torch.fixtures import load_solved_controller
+    from autonomous_quadrotor_environment_tpu_torch.landing import env as lenv
+
+    cfgs = lenv.LandingConfigs.default(training=False)
+    ctrl = load_solved_controller()
+    gen = torch.Generator(device=card).manual_seed(0)
+    rk.render_nadir_batch.launches = 0
+    state, obs = lenv.landing_reset(gen, cfgs, ctrl, 16)
+    state, out = lenv.landing_step(state, torch.zeros(16, 3, device=card), cfgs, ctrl, gen)
+    torch.cuda.synchronize()
+    assert rk.render_nadir_batch.launches == 2
+    want = rk.render_nadir_batch_plain(state.env.x[:, 0:5:2], state.marker_world[:, 0:2])
+    torch.testing.assert_close(out.obs.image, want, atol=1e-4, rtol=0)

@@ -3,8 +3,10 @@ arrays cross as numpy, configs as dataclass fields, env states field by
 field."""
 
 import dataclasses
+import functools
 
 import numpy as np
+import pytest
 import torch
 
 from autonomous_quadrotor_environment_tpu_torch import config as tcfg
@@ -14,6 +16,18 @@ from autonomous_quadrotor_environment_tpu_torch.envs.hover import EnvState
 # The step-math tolerance of tests/test_rollout_fused.py, which ROADMAP.md
 # fixes for the port's parity tests.
 RTOL, ATOL = 2e-4, 2e-5
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """One torch thread for a module's tests: the port's small eager ops run
+    fastest on one, and the test workers already share the cores. A module
+    takes it with ``pytestmark = pytest.mark.usefixtures("one_torch_thread")``
+    after importing it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def t(x, dtype=None) -> torch.Tensor:
@@ -126,3 +140,98 @@ def jax_rollout_draws(jmodel, jparams, jstates, key, jenv_cfg, steps, reset_pool
     noise = np.stack([np.asarray(jax.random.normal(k, (b, 4)))
                       for k in jax.random.split(k_steps, steps)])
     return noise, np.asarray(fresh), out
+
+
+@functools.lru_cache(maxsize=None)
+def _sensor_draw_fn(primary):
+    import jax
+    import jax.numpy as jnp
+
+    normal = lambda k: jax.random.normal(k, (3,), jnp.float32)
+    uniform = lambda k: jax.random.uniform(k, (3,), jnp.float32)
+    zero = jnp.zeros(3, jnp.float32)
+
+    def triad(k):
+        if primary:
+            k_acc, k_mag = jax.random.split(k)
+            return zero, normal(k_acc), zero, normal(k_mag)
+        k1, k2, k3, k4 = jax.random.split(k, 4)
+        return uniform(k1), normal(k2), uniform(k3), normal(k4)
+
+    def one(key):
+        k1, k2, k3, k4, k5 = jax.random.split(key, 5)
+        k_acc, k_triad = jax.random.split(k1)
+        ug1, ng1, um1, nm1 = triad(k_triad)
+        kp, kv = jax.random.split(k4)
+        ug2, ng2, um2, nm2 = triad(k5)
+        normals = jnp.stack([normal(k_acc), ng1, nm1, normal(k2), normal(k3),
+                             normal(kp), normal(kv), ng2, nm2])
+        return normals, jnp.stack([ug1, um1, ug2, um2])
+
+    return jax.jit(jax.vmap(one))
+
+
+def jax_sensor_draws(keys, primary=False):
+    """The draws the JAX package's `sensor_fused` takes from each env's key
+    (keys (..., 2)), walking the same splits, in the port's `SensorNoise`
+    slots: normal (..., 9, 3) and uniform (..., 4, 3), numpy. The opt
+    triad draws U, N, U, N from a 4-way split; the primary one its
+    accelerometer and magnet normals from a 2-way split (no uniforms)."""
+    keys = np.asarray(keys)
+    normals, uniforms = _sensor_draw_fn(primary)(keys.reshape(-1, keys.shape[-1]))
+    lead = keys.shape[:-1]
+    return (np.asarray(normals).reshape(lead + (9, 3)),
+            np.asarray(uniforms).reshape(lead + (4, 3)))
+
+
+@functools.lru_cache(maxsize=None)
+def _split_fn():
+    import jax
+
+    return jax.jit(jax.vmap(jax.random.split))
+
+
+def jax_landing_frame_keys(state_keys, frames):
+    """The per-frame sensor keys of the JAX package's landing env from each
+    env's state key (B, 2): each frame splits ``key, k_sens`` (JAX
+    landing/env.py:93). Returns (frames, B, 2) sensor keys and the keys
+    left after them."""
+    split = _split_fn()
+    keys, out = state_keys, []
+    for _ in range(frames):
+        pair = split(keys)
+        keys, k_sens = pair[:, 0], pair[:, 1]
+        out.append(np.asarray(k_sens))
+    return np.stack(out), keys
+
+
+def jax_landing_reset_draws(keys, primary=False):
+    """The draws of the JAX package's `landing_reset` from each episode's
+    key (B, 2), in the port's form: a `ResetDraws` of CPU tensors and each
+    episode's state key (B, 2) that its frames then split."""
+    import jax
+    import jax.numpy as jnp
+
+    from autonomous_quadrotor_environment_tpu_torch.landing.env import ResetDraws
+
+    def one(key):
+        k_marker, k_z, k_xy, _k_env, k_sens, k_state = jax.random.split(key, 6)
+        drift = jnp.stack([jax.random.uniform(k, (), jnp.float32)
+                           for k in jax.random.split(k_sens, 3)])
+        return (jax.random.normal(k_marker, (2,), jnp.float32),
+                jax.random.uniform(k_z, (), jnp.float32),
+                jax.random.uniform(k_xy, (2,), jnp.float32), drift, k_state)
+
+    marker, z_u, xy_u, drift_u, k_state = jax.jit(jax.vmap(one))(jnp.asarray(keys))
+    return ResetDraws(t(marker), t(z_u), t(xy_u), t(drift_u)), np.asarray(k_state)
+
+
+def jax_landing_noise(state_keys, frames, primary=False):
+    """The sensor noise of ``frames`` landing frames from each env's state
+    key, as a port `SensorNoise` of CPU tensors with leading axes (frames,
+    B), and the keys left after them."""
+    from autonomous_quadrotor_environment_tpu_torch.envs.sensors import SensorNoise
+
+    frame_keys, keys = jax_landing_frame_keys(state_keys, frames)
+    normal, uniform = jax_sensor_draws(frame_keys, primary)
+    return SensorNoise(t(normal), t(uniform)), keys
