@@ -49,7 +49,7 @@ from ..device import resolve_device
 from ..envs import hover
 from ..ops import ppo_fused as pfr
 from ..ops import rollout_fused as rf
-from ..ops.ppo_fused_t import CHUNK, fused_ppo_grad_t
+from ..ops.ppo_fused_t import TILE_STEP, fused_ppo_grad_t
 from .gae import gae_advantages
 from .networks import ActorCritic, DiagGaussian
 
@@ -667,9 +667,9 @@ def train_branch(model: ActorCritic, opt: torch.optim.Optimizer, env_cfg: EnvCon
                 f"the port's update kernels take {pfr.OBS}-dim obs, not {env_cfg.hist_t * 15} "
                 f"(hist_t={env_cfg.hist_t}; ROADMAP B, the rest of B1 and B2)"
             )
-        if fused_t and tile_t % CHUNK:
+        if fused_t and tile_t % TILE_STEP:
             raise NotImplementedError(
-                f"the port's B2 kernel takes env tiles that are multiples of {CHUNK}, "
+                f"the port's B2 kernel takes env tiles that are multiples of {TILE_STEP}, "
                 f"not {tile_t} (ROADMAP B, the rest of B1 and B2)"
             )
     return "fused_t" if fused_t else "rowmajor"

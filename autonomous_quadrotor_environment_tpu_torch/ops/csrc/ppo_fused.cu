@@ -14,17 +14,18 @@
 //   g^2, p += -lr / c1 * m / (sqrt(v) / sqrt(c2) + eps)), the bias
 //   corrections c1, c2 from the host.
 //
-// The chunk's forward and backward, the per-head CTAs with their shared
-// accumulators and the fixed-order reduction are B2's (`ppo_grad.cuh`,
-// where the design and the bound are written down). What is this file's own
-// is the loader. The minibatch is the row blocks `perm` of `tile` rows each
-// and is never gathered: minibatch row m is row
+// The chunk's forward and backward, the per-head CTAs with their resident
+// weights and register accumulators, and the fixed-order reduction are
+// B2's (`ppo_grad.cuh`, where the design and the bound are written down).
+// What is this file's own is the loader. The minibatch is the row blocks
+// `perm` of `tile` rows each and is never gathered: minibatch row m is row
 // perm[m / tile] * tile + m % tile of the row-major obs (n, 75) and aux
-// (n, 8). A chunk is 32 consecutive minibatch rows; the 32 source rows are
-// resolved once per chunk into shared memory, then the chunk's 32 x 75
-// floats are staged with neighbouring threads on neighbouring floats of a
-// row (a row is 300 contiguous bytes), so the loads coalesce. Any tile goes:
-// a chunk may span blocks, and the last chunk is padded with rows that add
+// (n, 8). A chunk is 64 consecutive minibatch rows; its source rows are
+// resolved into shared memory while the chunk before it computes, then its
+// 64 x 75 floats are copied by 4-byte cp.async (a row is 300 bytes, only
+// 4-byte aligned) into the chunk's transposed X^T, neighbouring threads on
+// neighbouring floats of a row, so the loads coalesce. Any tile goes: a
+// chunk may span blocks, and the last chunk is padded with rows that add
 // nothing.
 
 #include "ppo_grad.cuh"
@@ -32,9 +33,6 @@
 using namespace ppo_grad;
 
 namespace {
-
-constexpr int S_ROWS = SMEM_FLOATS;  // [CHUNK] int source rows of the chunk
-constexpr int SMEM_BYTES = (SMEM_FLOATS + CHUNK) * (int)sizeof(float);
 
 struct Params {
   const float* obs;    // (n, OBS) row-major
@@ -46,55 +44,64 @@ struct Params {
   LossConsts c;
 };
 
+// Chunk q's source rows into table buf: a row >= 0; -1 padding past the
+// minibatch's end (zeros); -2 a bad block id, whose row poisons the loss
+// and the gradients with NaN.
+__device__ __forceinline__ void resolve(const Params& P, float* S, int q, int buf) {
+  if (threadIdx.x >= CHUNK) return;
+  const int m = q * CHUNK + threadIdx.x;
+  int row = -1;
+  if (m < P.mb) {
+    const int p = __ldg(P.perm + m / P.tile);
+    row = (p >= 0 && p < P.n_ids) ? p * P.tile + m % P.tile : -2;
+  }
+  reinterpret_cast<int*>(S + S_ROWS)[buf * CHUNK + threadIdx.x] = row;
+}
+
+// Stage the chunk of table buf in input buffer buf: X^T and aux rows 0-6 by
+// cp.async, aux row 7 the live flags (a bad row is live).
+__device__ __forceinline__ void stage(const Params& P, float* S, int buf) {
+  const int* rows = reinterpret_cast<const int*>(S + S_ROWS) + buf * CHUNK;
+  float* X = S + S_X + buf * K1 * CHUNK;
+  float* AUX = S + S_AUX + buf * 8 * CHUNK;
+  for (int e = threadIdx.x; e < CHUNK * OBS; e += THREADS) {
+    const int r = e / OBS, f = e - r * OBS, row = rows[r];
+    float* dst = X + f * CHUNK + (r ^ swz(f));
+    if (row >= 0) cp_async4(dst, P.obs + (size_t)row * OBS + f); else *dst = 0.f;
+  }
+  for (int e = threadIdx.x; e < CHUNK * 8; e += THREADS) {
+    const int r = e >> 3, f = e & 7, row = rows[r];
+    float* dst = AUX + f * CHUNK + r;
+    if (f == 7) *dst = row == -1 ? 0.f : 1.f;
+    else if (row >= 0) cp_async4(dst, P.aux + (size_t)row * 8 + f);
+    else *dst = row == -1 ? 0.f : nanf("");
+  }
+}
+
 __global__ void __launch_bounds__(THREADS, 1) ppo_grad_rows_kernel(Params P) {
   extern __shared__ float4 smem4[];
   float* S = reinterpret_cast<float*>(smem4);
-  float* acc = S + S_ACC;
-  float* X = S + S_X;
-  float* AUX = S + S_AUX;
-  int* ROWS = reinterpret_cast<int*>(S + S_ROWS);
-
   const int head = blockIdx.y;  // 0 actor, 1 critic
-  const int tid = threadIdx.x;
-  const float* W = P.pack + head * PACK;
-
-  for (int e = tid; e < ACC; e += THREADS) acc[e] = 0.f;
-  float actor_sum = 0.f, critic_sum = 0.f, rmax = 0.f;  // kept by thread 0
+  Walk w;
+  init_walk(S, P.pack + head * PACK, w);
 
   const int n_chunks = (P.mb + CHUNK - 1) / CHUNK;
-  for (int q = blockIdx.x; q < n_chunks; q += P.G) {
-    const int valid = min(CHUNK, P.mb - q * CHUNK);
-    __syncthreads();  // the previous chunk's readers of X, AUX and ROWS are done
-    if (tid < CHUNK) {
-      // -1: a padding row (zeros); -2: a bad block id, whose row poisons
-      // the loss and the gradients with NaN.
-      int row = -1;
-      if (tid < valid) {
-        const int m = q * CHUNK + tid;
-        const int p = P.perm[m / P.tile];
-        row = (p >= 0 && p < P.n_ids) ? p * P.tile + m % P.tile : -2;
-      }
-      ROWS[tid] = row;
-    }
-    __syncthreads();
-    for (int e = tid; e < CHUNK * OBS; e += THREADS) {
-      const int r = e / OBS, f = e - r * OBS;
-      const int row = ROWS[r];
-      X[r * OBS_P + f] = row >= 0 ? __ldg(P.obs + (size_t)row * OBS + f) : 0.f;
-    }
-    if (tid < CHUNK) X[tid * OBS_P + OBS] = 0.f;
-    {
-      const int r = tid >> 3, f = tid & 7;  // 256 = 32 rows x 8
-      const int row = ROWS[r];
-      AUX[f * CHUNK + r] = row >= 0 ? __ldg(P.aux + (size_t)row * 8 + f)
-                                    : (row == -1 ? 0.f : nanf(""));
-    }
-    __syncthreads();
-
-    chunk_grad(W, head, S, valid, P.c, actor_sum, critic_sum, rmax);
-  }
+  int q = blockIdx.x, buf = 0;
+  if (q < n_chunks) resolve(P, S, q, 0);
   __syncthreads();
-  write_partial(S, P.work, P.G, head, actor_sum, critic_sum, rmax);
+  if (q < n_chunks) stage(P, S, 0);
+  cp_async_commit();
+  for (; q < n_chunks; q += P.G, buf ^= 1) {
+    cp_async_wait_all();
+    __syncthreads();  // chunk q staged; the previous chunk's readers are done
+    const int next = q + P.G;
+    if (next < n_chunks) resolve(P, S, next, buf ^ 1);
+    chunk_grad(S, buf, head, P.c, w, [&] {
+      if (next < n_chunks) stage(P, S, buf ^ 1);
+      cp_async_commit();
+    });
+  }
+  write_partial(S, P.work, P.G, head, w);
 }
 
 // The 12 parameter leaves and their two Adam moments, flax leaf order,

@@ -34,8 +34,21 @@ from .rollout_fused import _check, transpose_leaves
 OBS = 75
 HIDDEN = 128  # the one hidden width the kernel is built for
 ACT = 4
-CHUNK = 32    # rows per chunk in the kernel: a tile must be a multiple
+TILE_STEP = 32  # a tile must be a multiple: the kernel loads 32-env halves of a chunk
+CHUNK = 64      # rows per chunk in the gradient kernels
 _LOG_2PI = math.log(2.0 * math.pi)
+
+# One head's weight pack (floats), as `csrc/ppo_grad.cuh` declares it (P_*):
+# W1 (out, in) with its inputs padded to K1 = 80, W2 (out, in), W3 padded
+# to ACT rows, b1, b2, b3 padded to ACT.
+K1 = 80
+P_W1 = 0
+P_W2 = P_W1 + HIDDEN * K1
+P_W3 = P_W2 + HIDDEN * HIDDEN
+P_B1 = P_W3 + ACT * HIDDEN
+P_B2 = P_B1 + HIDDEN
+P_B3 = P_B2 + HIDDEN
+PACK = P_B3 + ACT
 
 
 def entropy_const(action_std: float) -> float:
@@ -55,7 +68,7 @@ def supports(obs_t: torch.Tensor, leaves: list, tile: int) -> bool:
         and tuple(leaves[0].shape) == (HIDDEN, OBS)
         and tuple(leaves[4].shape)[0] == ACT
         and tile > 0
-        and tile % CHUNK == 0
+        and tile % TILE_STEP == 0
         and b % tile == 0
     )
 
@@ -125,22 +138,18 @@ def _leaf_shapes(hidden: int, n_act: int = ACT) -> list[tuple]:
 
 
 def _pack(leaves: list[torch.Tensor]) -> torch.Tensor:
-    """The kernel's (2, PACK) weights: per head W1 transposed and padded to
-    76 inputs, W2 transposed, W2, W3 padded to 4 rows, b1, b2, b3 padded."""
-    heads = []
-    for w1, b1, w2, b2, w3, b3 in (leaves[:6], leaves[6:]):
-        dev = w1.device
-        w1t = torch.zeros(OBS + 1, HIDDEN, dtype=torch.float32, device=dev)
-        w1t[:OBS] = w1.t()
-        w3p = torch.zeros(ACT, HIDDEN, dtype=torch.float32, device=dev)
-        w3p[: w3.shape[0]] = w3
-        b3p = torch.zeros(ACT, dtype=torch.float32, device=dev)
-        b3p[: w3.shape[0]] = b3.reshape(-1)
-        heads.append(torch.cat([
-            w1t.reshape(-1), w2.t().reshape(-1), w2.reshape(-1), w3p.reshape(-1),
-            b1.reshape(-1), b2.reshape(-1), b3p,
-        ]))
-    return torch.stack(heads).contiguous()
+    """The kernels' (2, PACK) weights at the offsets P_*: per head W1 with
+    its inputs padded to K1, W2, W3 padded to ACT rows, b1, b2, b3 padded."""
+    pack = torch.zeros(2, PACK, dtype=torch.float32, device=leaves[0].device)
+    for head, (w1, b1, w2, b2, w3, b3) in enumerate((leaves[:6], leaves[6:])):
+        p = pack[head]
+        p[P_W1:P_W2].view(HIDDEN, K1)[:, :OBS] = w1
+        p[P_W2:P_W3] = w2.reshape(-1)
+        p[P_W3:P_W3 + w3.numel()] = w3.reshape(-1)
+        p[P_B1:P_B2] = b1.reshape(-1)
+        p[P_B2:P_B3] = b2.reshape(-1)
+        p[P_B3:P_B3 + b3.numel()] = b3.reshape(-1)
+    return pack
 
 
 def check_leaves(leaves: list, device: torch.device) -> None:
@@ -227,7 +236,7 @@ def _launch(leaves, obs_t, aux_t, perm, tile, action_std, clip_eps):
     n_blocks = perm.shape[0]
     mb = n_blocks * tile
     lib = _build.load("ppo_fused_t")
-    pack, ctas, work = launch_buffers(lib, leaves, device, n_blocks * (tile // CHUNK))
+    pack, ctas, work = launch_buffers(lib, leaves, device, -(-mb // CHUNK))
     out = torch.empty(lib.ppo_grad_out_floats(), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -267,7 +276,7 @@ def fused_ppo_grad_t(model_or_leaves, obs_t: torch.Tensor, aux_t: torch.Tensor,
     if not supports(obs_t, leaves, tile):
         raise ValueError(
             "the ppo_fused_t kernel takes hidden width 128, 75-dim obs, 4 actions "
-            f"and a tile that is a multiple of {CHUNK} dividing B; got leaves "
+            f"and a tile that is a multiple of {TILE_STEP} dividing B; got leaves "
             f"{[tuple(l.shape) for l in leaves[:1]]}, obs {tuple(obs_t.shape)}, tile {tile}"
         )
     actor_sum, critic_sum, rmax, mb, grads = _launch(

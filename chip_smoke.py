@@ -19,7 +19,8 @@ It imports nothing of JAX. Each phase prints one flushed JSON line:
    (autograd of `ppo_loss`) on the same CUDA tensors: a seeded small shape
    (T=8, B=1024, tile 128, a shuffled subset of blocks) and one
    quarter-batch minibatch at the bench shape of the solved controller's
-   rollout after GAE; the kernel's time, the plain version's and the bound.
+   rollout after GAE; the kernel's time, the plain version's, the f32 bound
+   and the tensor-core bound of its 3xTF32 products.
 4. grad_vs_plain: the row-major PPO gradient kernel (B3) and the same with
    the Adam step (B4) against their plain versions: seeded small shapes at
    tiles 8, 40 and 128 (chunks span blocks, the last one padded) and one
@@ -28,7 +29,7 @@ It imports nothing of JAX. Each phase prints one flushed JSON line:
    (b) runs B4), and the full batch of the trainer's first rollout (131,072
    rows, tile 128, every block: where train_rowmajor (a) runs B3 and
    learn_rowmajor B4); B4 from a warmed Adam state, and from an empty one
-   with its sign flips counted; times and bounds at both large shapes.
+   with its sign flips counted; times and both bounds at both large shapes.
 5. render_vs_plain: the render kernel (B5) against its plain version on the
    same CUDA tensors at B=100 and B=4096 seeded poses (heights 0.01-7 m,
    markers N(0, 0.8), brightness 0.5-1.2): max abs error, pixels above
@@ -117,6 +118,7 @@ from autonomous_quadrotor_environment_tpu_torch.ops import rollout_fused as rf
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_F32_FLOPS = 67e12    # f32 on the CUDA cores
+PEAK_TF32_FLOPS = 495e12  # TF32 on the tensor cores
 PEAK_HBM_BYTES = 3.35e12  # device memory
 
 DEVICE = "cuda"
@@ -265,15 +267,31 @@ def kernel_and_plain(cfg, model, states, gen, steps, pool_size):
 # ---------------------------------------------------------------------------
 
 
+def _ptxas_entries(log: str) -> dict:
+    """ptxas's -v report per entry function: registers, stack frame and
+    spill bytes."""
+    entries = {}
+    for part in re.split(r"Compiling entry function '", log)[1:]:
+        name = part.split("'", 1)[0]
+        regs = re.search(r"Used (\d+) registers", part)
+        spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", part)
+        entries[name] = {
+            "registers": int(regs.group(1)) if regs else None,
+            "stack_frame_bytes": int(spill.group(1)) if spill else None,
+            "spill_store_bytes": int(spill.group(2)) if spill else None,
+            "spill_load_bytes": int(spill.group(3)) if spill else None,
+        }
+    return entries
+
+
 def _ptxas(name: str, info: dict) -> dict:
     lib = _build.load(name)
     log = info["log"]
     return {
         "nvcc_seconds": info["seconds"],
         "cached": info["cached"],
-        "registers": [int(x) for x in re.findall(r"Used (\d+) registers", log)],
-        "spill_store_load_bytes": [(int(a), int(b)) for a, b in re.findall(
-            r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)],
+        "entries": _ptxas_entries(log),
         "dynamic_smem_bytes": getattr(lib, f"{name}_smem_bytes")(),
         "ptxas": [l.strip() for l in log.splitlines() if "ptxas" in l or "spill" in l],
     }
@@ -409,6 +427,15 @@ def grad_bound(rows: int, n_blocks: int, hidden: int, n_params: int,
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, bytes_
 
 
+def grad_tc_bound(rows: int) -> float:
+    """The gradient kernels' least time on the tensor cores, in ms: 3xTF32
+    forms each f32 product as three TF32 products, so 3 x the products' FLOP
+    (`grad_flops_per_row`) over the TF32 peak. Beside it the f32 bound
+    (`grad_bound`) stays the bound of the function; each row also takes
+    512 accurate tanhf on the CUDA cores."""
+    return 1e3 * 3.0 * rows * grad_flops_per_row(pf.HIDDEN) / PEAK_TF32_FLOPS
+
+
 def metric_errors(loss, met, lp, mp, aux) -> tuple[dict, dict]:
     """The loss's and each metric's error against the plain version's:
     relative to the plain value (``rel``), and as held to 1e-4 (``held``):
@@ -530,6 +557,8 @@ def phase_grad_t_vs_plain() -> dict:
         "kernel_ms": ms, "plain_ms": plain_ms, "kernel_slower_than_plain": ms > plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": bytes_,
         "achieved_f32_tflops": flops / (ms / 1e3) / 1e12,
+        "tc_bound_ms": grad_tc_bound(bench["rows"]),
+        "share_of_tc_bound": grad_tc_bound(bench["rows"]) / ms,
         "max_abs_err": max(small["max_abs_err"], bench["max_abs_err"]),
     }
     emit(out)
@@ -667,6 +696,8 @@ def timed_rows(model, obs, aux, blocks, tile: int) -> dict:
                                                   n_params, adam=adam)
         out[name + "_bound_ms"], out[name + "_bound_by"] = bound_ms, bound_by
         out[name + "_f32_tflops"] = flops / (out[name + "_ms"] / 1e3) / 1e12
+        out[name + "_tc_bound_ms"] = grad_tc_bound(rows)
+        out[name + "_share_of_tc_bound"] = grad_tc_bound(rows) / out[name + "_ms"]
     return out
 
 
@@ -1024,6 +1055,8 @@ def phase_train() -> dict:
         "share_grad_kernel": b2_ms * launches_b2 / warm_ms,
         "grad_kernel_bound_ms": bound_ms, "grad_kernel_bound_by": bound_by,
         "grad_kernel_f32_tflops": flops / (b2_ms / 1e3) / 1e12,
+        "grad_kernel_tc_bound_ms": grad_tc_bound(rows),
+        "grad_kernel_share_of_tc_bound": grad_tc_bound(rows) / b2_ms,
         "profile": prof,
     }
     emit(out)

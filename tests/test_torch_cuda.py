@@ -259,6 +259,105 @@ def test_rows_adam_kernel_matches_plain(card):
     assert all(int(opt.state[p]["step"]) == 5 for p in params)
 
 
+# The gradient kernels stage 64-row chunks; B2 loads each as two 32-env
+# halves, which may lie in two row blocks, and pads a last chunk of 32 rows.
+
+
+@pytest.mark.parametrize("steps,b,tile,n_blocks", [(2, 256, 32, 7), (2, 480, 96, 5), (4, 160, 160, 3)])
+def test_grad_kernel_at_the_chunk_edges(card, steps, b, tile, n_blocks):
+    """B2 at tiles that are odd multiples of 32 and odd block counts: chunks
+    that span two blocks and a 32-row tail; within the same gates as
+    `test_grad_kernel_matches_plain`, and the same bits on a second launch."""
+    model, obs, aux, g = _grad_inputs(card, steps, b, seed=3)
+    blocks = torch.randperm(steps * b // tile, generator=g, device=card)[:n_blocks].to(torch.int32)
+    kw = dict(tile=tile, action_std=0.1, clip_eps=0.2, entropy_coef=0.006)
+    loss, met, grads = pf.fused_ppo_grad_t(model, obs, aux, blocks, **kw)
+    loss2, _, grads2 = pf.fused_ppo_grad_t(model, obs, aux, blocks, **kw)
+    torch.cuda.synchronize()
+    lp, mp, gp = pf.ppo_grad_t_plain(model, obs, aux, blocks, **kw)
+    torch.testing.assert_close(loss, lp, rtol=1e-4, atol=0)
+    for k in mp:
+        torch.testing.assert_close(met[k], mp[k], rtol=1e-4, atol=0, msg=k)
+    assert max(_rel_fro(gk, w) for gk, w in zip(grads, gp)) <= 1e-4
+    assert torch.equal(loss, loss2)
+    assert all(torch.equal(x, y) for x, y in zip(grads, grads2))
+
+
+def test_grad_kernel_takes_a_batch_that_is_not_16_byte_aligned(card):
+    """B2 copies 16-byte pieces of a feature row when obs and aux are 16-byte
+    aligned, and 4-byte pieces otherwise: a contiguous batch that starts one
+    float into its storage gives the same result as an aligned copy of it."""
+    model, obs, aux, g = _grad_inputs(card, 2, 256, seed=5)
+    blocks = torch.randperm(8, generator=g, device=card)[:5].to(torch.int32)
+    kw = dict(tile=64, action_std=0.1, clip_eps=0.2, entropy_coef=0.006)
+    shifted = []
+    for x in (obs, aux):
+        store = torch.empty(x.numel() + 1, device=card)
+        store[1:] = x.reshape(-1)
+        shifted.append(store[1:].view(x.shape))
+    assert shifted[0].data_ptr() % 16 and shifted[1].data_ptr() % 16
+    loss, _, grads = pf.fused_ppo_grad_t(model, obs, aux, blocks, **kw)
+    loss_s, _, grads_s = pf.fused_ppo_grad_t(model, *shifted, blocks, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(loss, loss_s)
+    assert all(torch.equal(x, y) for x, y in zip(grads, grads_s))
+
+
+@pytest.mark.parametrize("n,tile,n_blocks", [(3000, 100, 7), (4800, 48, 45), (999, 37, 27)])
+def test_rows_grad_kernel_at_the_chunk_edges(card, n, tile, n_blocks):
+    """B3 at minibatches that are not multiples of 64 rows (700, 2160 and
+    999): the last chunk is padded, chunks span blocks; the gates of
+    `test_rows_grad_kernel_matches_plain` and the same bits on a relaunch."""
+    model, obs, aux, g = _row_inputs(card, n, seed=4)
+    blocks = torch.randperm(n // tile, generator=g, device=card)[:n_blocks].to(torch.int32)
+    loss, met, grads = pr.fused_ppo_grad(model, obs, aux, blocks, tile=tile, **ROW_KW)
+    loss2, _, grads2 = pr.fused_ppo_grad(model, obs, aux, blocks, tile=tile, **ROW_KW)
+    torch.cuda.synchronize()
+    lp, mp, gp = pr.ppo_grad_plain(model, obs, aux, blocks, tile=tile, **ROW_KW)
+    torch.testing.assert_close(loss, lp, rtol=1e-4, atol=0)
+    for k in mp:
+        torch.testing.assert_close(met[k], mp[k], rtol=1e-4, atol=0, msg=k)
+    assert max(_rel_fro(gk, w) for gk, w in zip(grads, gp)) <= 1e-4
+    assert torch.equal(loss, loss2)
+    assert all(torch.equal(x, y) for x, y in zip(grads, grads2))
+
+
+def test_rows_adam_kernel_at_a_ragged_size(card):
+    """B4 from a warmed Adam state on 27 blocks of 37 rows (999 rows, not a
+    multiple of 64), against the plain version on copies of the state;
+    a second launch from the same state gives the same bits."""
+    model, obs, aux, g = _row_inputs(card, 1998, seed=6)
+    blocks = torch.randperm(54, generator=g, device=card)[:27].to(torch.int32)
+    opt = _warm_adam(model)
+    params = [p for l in model.linears() for p in (l.weight, l.bias)]
+    saved = [[x.detach().clone() for x in xs] for xs in (
+        params, [opt.state[p]["exp_avg"] for p in params],
+        [opt.state[p]["exp_avg_sq"] for p in params])]
+    want = pr.ppo_grad_adam_plain([x.clone() for x in saved[0]], [x.clone() for x in saved[1]],
+                                  [x.clone() for x in saved[2]], 3, obs, aux, blocks, tile=37,
+                                  lr=5e-4, b1=0.9, b2=0.999, **ROW_KW)
+    runs = []
+    for _ in range(2):
+        with torch.no_grad():
+            for i, p in enumerate(params):
+                p.copy_(saved[0][i])
+                opt.state[p]["exp_avg"].copy_(saved[1][i])
+                opt.state[p]["exp_avg_sq"].copy_(saved[2][i])
+                opt.state[p]["step"].fill_(3)
+        loss, _ = pr.fused_ppo_grad_adam(model, opt, obs, aux, blocks, tile=37, **ROW_KW)
+        torch.cuda.synchronize()
+        runs.append((loss, [p.detach().clone() for p in params],
+                     [opt.state[p]["exp_avg"].clone() for p in params],
+                     [opt.state[p]["exp_avg_sq"].clone() for p in params]))
+    torch.testing.assert_close(runs[0][0], want[0], rtol=1e-4, atol=0)
+    for i in range(len(params)):
+        assert _rel_fro(runs[0][1][i], want[2][i]) <= 1e-4
+        assert _rel_fro(runs[0][2][i], want[3][i]) <= 1e-4
+        assert _rel_fro(runs[0][3][i], want[4][i]) <= 1e-4
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert all(torch.equal(x, y) for a, b in zip(runs[0][1:], runs[1][1:]) for x, y in zip(a, b))
+
+
 def test_rows_kernels_refuse_what_they_do_not_take(card):
     model, obs, aux, _ = _row_inputs(card, 256)
     blocks = torch.arange(2, dtype=torch.int32, device=card)

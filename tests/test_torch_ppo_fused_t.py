@@ -12,6 +12,8 @@ few 1e-7 while the leaf runs to 0.3: with atol 2e-7 alone, 1 to 3 of the
 float64 evaluation of the same loss (within 6.4e-6 of the leaf's largest
 entry), which `test_plain_matches_float64` pins."""
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -176,27 +178,68 @@ def test_supports_and_refusals():
 
 
 def test_pack_layout():
-    """The kernel's weight pack: per head W1^T padded to 76 rows, W2^T, W2,
-    W3 padded to 4 rows, b1, b2, b3 padded; the critic's pads are zero."""
+    """The kernels' weight pack at the offsets `ops.ppo_fused_t` mirrors from
+    the header: per head W1 (out, in) with inputs 75-79 zero, one copy of W2
+    (out, in), W3 padded to 4 rows, b1, b2, b3 padded; the pads are zero."""
     model = ActorCritic(hidden=128)
     leaves = tpf._leaves(model)
     pack = tpf._pack(leaves)
-    h, o = 128, 75
-    assert pack.shape == (2, (o + 1) * h + 2 * h * h + 4 * h + 2 * h + 4)
+    h, o, k1 = 128, 75, tpf.K1
+    assert pack.shape == (2, k1 * h + h * h + 4 * h + 2 * h + 4) == (2, tpf.PACK)
     for head in range(2):
         w1, b1, w2, b2, w3, b3 = leaves[6 * head: 6 * head + 6]
         p = pack[head]
-        off = 0
-        w1t = p[off: off + (o + 1) * h].view(o + 1, h); off += (o + 1) * h
-        assert torch.equal(w1t[:o], w1.t()) and not w1t[o].any()
-        assert torch.equal(p[off: off + h * h].view(h, h), w2.t()); off += h * h
-        assert torch.equal(p[off: off + h * h].view(h, h), w2); off += h * h
-        w3p = p[off: off + 4 * h].view(4, h); off += 4 * h
+        w1p = p[tpf.P_W1: tpf.P_W2].view(h, k1)
+        assert torch.equal(w1p[:, :o], w1) and not w1p[:, o:].any()
+        assert torch.equal(p[tpf.P_W2: tpf.P_W3].view(h, h), w2)
+        w3p = p[tpf.P_W3: tpf.P_B1].view(4, h)
         assert torch.equal(w3p[: w3.shape[0]], w3) and not w3p[w3.shape[0]:].any()
-        assert torch.equal(p[off: off + h], b1[:, 0]); off += h
-        assert torch.equal(p[off: off + h], b2[:, 0]); off += h
-        assert torch.equal(p[off: off + w3.shape[0]], b3[:, 0])
-        assert not p[off + w3.shape[0]:].any()
+        assert torch.equal(p[tpf.P_B1: tpf.P_B2], b1[:, 0])
+        assert torch.equal(p[tpf.P_B2: tpf.P_B3], b2[:, 0])
+        assert torch.equal(p[tpf.P_B3: tpf.P_B3 + w3.shape[0]], b3[:, 0])
+        assert not p[tpf.P_B3 + w3.shape[0]:].any()
+
+
+def _header_constants() -> dict:
+    """The `constexpr int` constants of `csrc/ppo_grad.cuh`, evaluated in
+    order (those that are not plain integer arithmetic are skipped)."""
+    import os
+    import re
+
+    path = os.path.join(os.path.dirname(tpf.__file__), "csrc", "ppo_grad.cuh")
+    consts = {}
+    for name, expr in re.findall(r"constexpr int (\w+) = ([^;]+);", open(path).read()):
+        try:
+            consts[name] = eval(expr.replace("/", "//"), {"__builtins__": {}}, dict(consts))
+        except (NameError, SyntaxError, TypeError):
+            pass
+    return consts
+
+
+def test_header_declares_the_mirrored_layouts():
+    """The pack offsets mirrored in `ops.ppo_fused_t` are the header's; the
+    (2, G, ACCS) partial layout that the reductions and B4's Adam step read
+    is the one they have always read (dW1 rows of 76, then dW2, dW3, b1, b2,
+    b3, 4 metrics); the flat output holds `split_out`'s leaves; the shared
+    memory fits a CTA."""
+    c = _header_constants()
+    for name in ("P_W1", "P_W2", "P_W3", "P_B1", "P_B2", "P_B3", "PACK", "K1", "CHUNK"):
+        assert c[name] == getattr(tpf, name), name
+    assert (c["OBS"], c["H"], c["NA"]) == (tpf.OBS, tpf.HIDDEN, tpf.ACT)
+    assert [c[k] for k in ("A_W1", "A_W2", "A_W3", "A_B1", "A_B2", "A_B3", "ACC", "ACCS")] == [
+        0, 9728, 26112, 26624, 26752, 26880, 26884, 26888]
+    sizes = [math.prod(s) for s in tpf._leaf_shapes(128)]
+    assert c["O_ACTOR"] == sum(sizes[:6]) and c["O_CRITIC"] == sum(sizes[6:])
+    assert c["N_OUT"] == sum(sizes) + 3
+    assert c["SMEM_FLOATS"] * 4 <= 232448  # a CTA's shared memory on an H100
+
+
+def test_split_out_follows_the_leaf_order():
+    out = torch.arange(53128, dtype=torch.float32)
+    grads, actor_sum, critic_sum, rmax = tpf.split_out(out)
+    assert [tuple(g.shape) for g in grads] == tpf._leaf_shapes(128)
+    assert torch.equal(torch.cat([g.reshape(-1) for g in grads]), out[:-3])
+    assert (actor_sum.item(), critic_sum.item(), rmax.item()) == (53125.0, 53126.0, 53127.0)
 
 
 def test_entropy_constant_matches_the_gaussian_head():
