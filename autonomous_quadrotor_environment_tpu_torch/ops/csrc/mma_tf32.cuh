@@ -1,6 +1,8 @@
-// PTX primitives of the PPO gradient kernels (`ppo_grad.cuh`), for sm_90a:
+// The 3xTF32 tensor-core products shared by the PPO gradient kernels
+// (`ppo_grad.cuh`) and the rollout kernel (`rollout_fused.cu`), for sm_90a:
 // the split of an f32 operand into two TF32 parts, the m16n8k8 TF32 tensor-
-// core product, and asynchronous copies from global to shared memory.
+// core product, asynchronous copies from global to shared memory, the
+// fragment views of operands in shared memory and a warp's tile product.
 
 #pragma once
 
@@ -47,6 +49,150 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+// The column swizzle of row `row` in a swizzled operand (X^T, H1, H2 and W2
+// of the gradient kernels; H1 and W2 of the rollout): it flips bits 2-4 of
+// the column only, so aligned groups of 4 (and pairs) stay together.
+__device__ __forceinline__ int swz(int row) { return ((row & 3) << 3) | (row & 4); }
+
+// Fragment reads. A warp's operand tiles are 8 x 8 blocks c = 0, 1, ... of
+// its rows idx0 + 8 c + g (lane g = lane / 4, t = lane % 4) at depth step i,
+// columns k = 8 i + t + 4 q (q = 0, 1): a = (c 2mt, q 0), (2mt + 1, 0),
+// (2mt, 1), (2mt + 1, 1) of an m16 tile; b = (nt, 0), (nt, 1) of an n8 tile.
+// Each view keeps per-thread bases, so a depth step adds an immediate (or
+// one XOR) to them.
+//
+// Entry (idx, k) at p[idx * LD + k]: rows padded, no swizzle (W1).
+template <int LD>
+struct RowsPlain {
+  const float* b;
+  __device__ __forceinline__ RowsPlain(const float* p, int idx0) {
+    const int lane = threadIdx.x & 31;
+    b = p + (idx0 + (lane >> 2)) * LD + (lane & 3);
+  }
+  __device__ __forceinline__ float at(int c, int q, int i) const {
+    return b[8 * c * LD + 8 * i + 4 * q];
+  }
+};
+
+// Entry (idx, k) at p[k * LD + idx], k along the stored rows: with LD = 8
+// (mod 32) the lanes (g, t) read banks 8 t + g, all distinct.
+template <int LD>
+struct ColsPlain {
+  const float* b;
+  __device__ __forceinline__ ColsPlain(const float* p, int idx0) {
+    const int lane = threadIdx.x & 31;
+    b = p + (lane & 3) * LD + idx0 + (lane >> 2);
+  }
+  __device__ __forceinline__ float at(int c, int q, int i) const {
+    return b[(8 * i + 4 * q) * LD + 8 * c];
+  }
+};
+
+// Entry (idx, k) at p[idx * LD + (k ^ swz(idx))], idx0 a multiple of 8:
+// swz(idx) = swz(g), and k ^ swz(g) = 8 (i ^ (g & 3)) + t + 4 (q ^ (g >> 2)).
+template <int LD>
+struct RowsSwz {
+  const float* b;
+  int g3, g2;
+  __device__ __forceinline__ RowsSwz(const float* p, int idx0) {
+    const int lane = threadIdx.x & 31, g = lane >> 2;
+    b = p + (idx0 + g) * LD + (lane & 3);
+    g3 = g & 3;
+    g2 = g >> 2;
+  }
+  __device__ __forceinline__ float at(int c, int q, int i) const {
+    return b[8 * c * LD + 8 * (i ^ g3) + 4 * (q ^ g2)];
+  }
+};
+
+// Entry (idx, k) at p[k * LD + (idx ^ swz(k))], k along the stored rows,
+// idx0 a multiple of 32 and c < 4: swz(k) = 8 t + 4 q, so the entry is at
+// p + (8 i + t + 4 q) LD + idx0 + 8 (c ^ t) + (g ^ 4 q).
+template <int LD>
+struct ColsSwz {
+  const float* b[2];
+  int t;
+  __device__ __forceinline__ ColsSwz(const float* p, int idx0) {
+    const int lane = threadIdx.x & 31, g = lane >> 2;
+    t = lane & 3;
+    b[0] = p + t * LD + idx0 + g;
+    b[1] = p + (t + 4) * LD + idx0 + (g ^ 4);
+  }
+  __device__ __forceinline__ float at(int c, int q, int i) const {
+    return b[q][8 * i * LD + 8 * (c ^ t)];
+  }
+};
+
+// An operand stored already split: its hi parts through view V at p, its lo
+// parts (split_tf32's, as bits) through the same view at p + lo_offset.
+template <class V>
+struct Split {
+  V h, l;
+  __device__ __forceinline__ Split(const float* p, int lo_offset, int idx0)
+      : h(p, idx0), l(p + lo_offset, idx0) {}
+};
+
+// Entry (c, q, i) of an operand view as its two TF32 parts: split here, or
+// read as stored.
+template <class V>
+__device__ __forceinline__ void parts(const V& v, int c, int q, int i, uint32_t& hi,
+                                      uint32_t& lo) {
+  split_tf32(v.at(c, q, i), hi, lo);
+}
+template <class V>
+__device__ __forceinline__ void parts(const Split<V>& v, int c, int q, int i, uint32_t& hi,
+                                      uint32_t& lo) {
+  hi = __float_as_uint(v.h.at(c, q, i));
+  lo = __float_as_uint(v.l.at(c, q, i));
+}
+
+// x's two parts as split_tf32 forms them, each as the float with its bits,
+// for storing an operand already split.
+__device__ __forceinline__ float2 split_store(float x) {
+  uint32_t hi, lo;
+  split_tf32(x, hi, lo);
+  return make_float2(__uint_as_float(hi), __uint_as_float(lo));
+}
+
+// acc[mt][nt] += sum_k A(m, k) B(k, n) over `steps` depth steps of 8, for
+// the warp's MT x NT tiles of 16 x 8 (the views hold where they start): in
+// 3xTF32, the three products of each tile in the order lo hi, hi lo, hi hi.
+// The depth loop is unrolled UNROLL times.
+template <int MT, int NT, int UNROLL = 2, class VA, class VB>
+__device__ __forceinline__ void warp_mma(float (&acc)[MT][NT][4], const VA& a, const VB& b,
+                                         int steps) {
+#pragma unroll (UNROLL)
+  for (int i = 0; i < steps; ++i) {
+    uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) parts(a, 2 * mt + (q & 1), q >> 1, i, ah[mt][q], al[mt][q]);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      uint32_t bh[2], bl[2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) parts(b, nt, q, i, bh[q], bl[q]);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        mma_tf32(acc[mt][nt], al[mt], bh);
+        mma_tf32(acc[mt][nt], ah[mt], bl);
+        mma_tf32(acc[mt][nt], ah[mt], bh);
+      }
+    }
+  }
+}
+
+template <int MT, int NT>
+__device__ __forceinline__ void zero(float (&acc)[MT][NT][4]) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
 }
 
 }  // namespace ppo_grad

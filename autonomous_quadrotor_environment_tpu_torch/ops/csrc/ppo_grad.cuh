@@ -168,10 +168,6 @@ __device__ __forceinline__ void sts4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
 }
 
-// The column swizzle of row `row` in X^T, H1, H2 and W2: it flips bits 2-4
-// of the column only, so aligned groups of 4 (and pairs) stay together.
-__device__ __forceinline__ int swz(int row) { return ((row & 3) << 3) | (row & 4); }
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -181,100 +177,6 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
-}
-
-// Fragment reads. A warp's operand tiles are 8 x 8 blocks c = 0, 1, ... of
-// its rows idx0 + 8 c + g (lane g = lane / 4, t = lane % 4) at depth step i,
-// columns k = 8 i + t + 4 q (q = 0, 1): a = (c 2mt, q 0), (2mt + 1, 0),
-// (2mt, 1), (2mt + 1, 1) of an m16 tile; b = (nt, 0), (nt, 1) of an n8 tile.
-// Each view keeps per-thread bases, so a depth step adds an immediate (or
-// one XOR) to them.
-//
-// Entry (idx, k) at p[idx * LD + k]: rows padded, no swizzle (W1).
-template <int LD>
-struct RowsPlain {
-  const float* b;
-  __device__ __forceinline__ RowsPlain(const float* p, int idx0) {
-    const int lane = threadIdx.x & 31;
-    b = p + (idx0 + (lane >> 2)) * LD + (lane & 3);
-  }
-  __device__ __forceinline__ float at(int c, int q, int i) const {
-    return b[8 * c * LD + 8 * i + 4 * q];
-  }
-};
-
-// Entry (idx, k) at p[idx * LD + (k ^ swz(idx))], idx0 a multiple of 8:
-// swz(idx) = swz(g), and k ^ swz(g) = 8 (i ^ (g & 3)) + t + 4 (q ^ (g >> 2)).
-template <int LD>
-struct RowsSwz {
-  const float* b;
-  int g3, g2;
-  __device__ __forceinline__ RowsSwz(const float* p, int idx0) {
-    const int lane = threadIdx.x & 31, g = lane >> 2;
-    b = p + (idx0 + g) * LD + (lane & 3);
-    g3 = g & 3;
-    g2 = g >> 2;
-  }
-  __device__ __forceinline__ float at(int c, int q, int i) const {
-    return b[8 * c * LD + 8 * (i ^ g3) + 4 * (q ^ g2)];
-  }
-};
-
-// Entry (idx, k) at p[k * LD + (idx ^ swz(k))], k along the stored rows,
-// idx0 a multiple of 32 and c < 4: swz(k) = 8 t + 4 q, so the entry is at
-// p + (8 i + t + 4 q) LD + idx0 + 8 (c ^ t) + (g ^ 4 q).
-template <int LD>
-struct ColsSwz {
-  const float* b[2];
-  int t;
-  __device__ __forceinline__ ColsSwz(const float* p, int idx0) {
-    const int lane = threadIdx.x & 31, g = lane >> 2;
-    t = lane & 3;
-    b[0] = p + t * LD + idx0 + g;
-    b[1] = p + (t + 4) * LD + idx0 + (g ^ 4);
-  }
-  __device__ __forceinline__ float at(int c, int q, int i) const {
-    return b[q][8 * i * LD + 8 * (c ^ t)];
-  }
-};
-
-// acc[mt][nt] += sum_k A(m, k) B(k, n) over `steps` depth steps of 8, for
-// the warp's MT x NT tiles of 16 x 8 (the views hold where they start): in
-// 3xTF32, the three products of each tile in the order lo hi, hi lo, hi hi.
-template <int MT, int NT, class VA, class VB>
-__device__ __forceinline__ void warp_mma(float (&acc)[MT][NT][4], const VA& a, const VB& b,
-                                         int steps) {
-#pragma unroll 2
-  for (int i = 0; i < steps; ++i) {
-    uint32_t ah[MT][4], al[MT][4];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        split_tf32(a.at(2 * mt + (q & 1), q >> 1, i), ah[mt][q], al[mt][q]);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      uint32_t bh[2], bl[2];
-#pragma unroll
-      for (int q = 0; q < 2; ++q) split_tf32(b.at(nt, q, i), bh[q], bl[q]);
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        mma_tf32(acc[mt][nt], al[mt], bh);
-        mma_tf32(acc[mt][nt], ah[mt], bl);
-        mma_tf32(acc[mt][nt], ah[mt], bh);
-      }
-    }
-  }
-}
-
-template <int MT, int NT>
-__device__ __forceinline__ void zero(float (&acc)[MT][NT][4]) {
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
 }
 
 // Forward hidden layer on the (64 rows x 128 units) output, each warp the

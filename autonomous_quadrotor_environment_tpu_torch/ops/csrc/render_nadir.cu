@@ -7,19 +7,25 @@
 // port's `render/scene.py:render_nadir` computes, written straight into the
 // port's NCHW image layout (B, 3, H, W).
 //
-// Design. Every pixel is independent and needs only its env's six scalars
-// (camera x, y, height, brightness; marker x, y), so one thread computes one
-// pixel: the grid is (ceil(H*W / 256), B), block y being the env. The TPU
-// kernel's one-program-per-env grid over (84, 3)-blocked VMEM tiles has no
-// counterpart here. Each thread reads its env's scalars (every thread of a
-// block the same ones, served from L1) and writes three floats, one to
-// each channel plane; neighbouring threads write neighbouring pixels, so
-// every store of a warp is one coalesced 128-byte line.
-//
 // Bound. The kernel reads 6 floats per env and writes B*H*W*3 floats: at
-// B = 100, 84x84, that is 8.47 MB, 2.5 us at 3.35 TB/s. The arithmetic is a
-// few dozen flops and three sin/cos per pixel, below that bound; at B = 100
-// the launch itself sets the pace.
+// B = 100, 84x84, that is 8.47 MB, 2.5 us at 3.35 TB/s; at B = 4096 347 MB,
+// 0.104 ms. The arithmetic per pixel is a few dozen flops and one sinf.
+//
+// Design. The nadir ray of pixel (u, v) meets the ground at x_w(u), y_w(v):
+// the hit point's x depends only on the column and its y only on the row,
+// and so do the square waves, the board and coverage edges and the slow
+// sin/cos of the ground shading. Only the checker, the products of the
+// factors, the ground's mixed sinf(x_w * 5.1 + y_w * 3.7) and the channels
+// mix the two. So a CTA owns one band of BAND_ROWS rows of one image (grid:
+// bands x B): it first computes each column's terms (x_w, its square wave,
+// board and coverage factors, sinf(x_w * 1.7)) and each of its rows' terms
+// (y_w, the same for y, cosf(y_w * 1.3)) into shared memory, each with
+// exactly the expression of the per-pixel formula, then each thread forms
+// four neighbouring pixels of a row from them and stores them as one
+// float4 per channel (a row of 84 floats is 336 bytes, a channel plane
+// 28,224: both multiples of 16); a width that is not a multiple of 4 takes
+// one pixel and scalar stores at a time. The pixels are the per-pixel
+// formula's, with the same operations in the same order.
 //
 // Precision. Precise sinf/cosf/floorf and IEEE division (no fast math).
 // The cell parity is c - 2*floor(c/2), a floor-mod like the plain
@@ -32,7 +38,9 @@
 
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 128;
+constexpr int BAND_ROWS = 21;  // rows per CTA: 84 = 4 bands
+constexpr int MAX_W = 256;     // widest image the column terms hold
 constexpr float DARK = 0.05f, LIGHT = 0.95f, BORDER = 0.9f;
 __constant__ float GROUND[3] = {0.35f, 0.42f, 0.32f};
 
@@ -57,52 +65,120 @@ __device__ __forceinline__ float square_wave(float x, float s, float soft) {
   return parity * w + (1.f - parity) * (1.f - w);
 }
 
+// The terms of one axis at hit coordinate x_w (marker at m, half extent
+// half): the square wave, the board factor, the coverage factor.
+struct AxisTerms {
+  float wave, board, cover;
+};
+
+__device__ __forceinline__ AxisTerms axis_terms(float x_w, float m, float half, float square,
+                                                float soft) {
+  const float rel = x_w - m;
+  const float a = fabsf(rel);
+  return {square_wave(rel + half, square, soft), clip01((half - a) / soft + 0.5f),
+          clip01((half + square - a) / soft + 0.5f)};
+}
+
+// The shared column and row terms of a band; the column arrays are 16-byte
+// aligned, so four neighbouring columns load as one float4 each.
+struct __align__(16) Terms {
+  float x[MAX_W], px[MAX_W], bx[MAX_W], cx[MAX_W], sx[MAX_W];
+  float y[BAND_ROWS], py[BAND_ROWS], by[BAND_ROWS], cy[BAND_ROWS], cyw[BAND_ROWS];
+};
+
+// One column's terms.
+struct Col {
+  float x, px, bx, cx, sx;
+};
+
+// Pixel (column terms c, band row i): its three channels.
+__device__ __forceinline__ void pixel(const Col& c, const Terms& tm, int i, float bright,
+                                      float (&rgb)[3]) {
+  const float px = c.px, py = tm.py[i];
+  const float checker = px * (1.f - py) + py * (1.f - px);
+  const float val = DARK + (LIGHT - DARK) * checker;
+  const float on_board = c.bx * tm.by[i];
+  const float coverage = c.cx * tm.cy[i];
+  const float wave = 0.06f * c.sx * tm.cyw[i] + 0.04f * sinf(c.x * 5.1f + tm.y[i] * 3.7f);
+  const float board = val * on_board + BORDER * (1.f - on_board);
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) {
+    const float ground = clip01(GROUND[ch] + wave);
+    const float v = board * coverage + ground * (1.f - coverage);
+    rgb[ch] = clip01(v * bright);
+  }
+}
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
 __global__ void __launch_bounds__(THREADS)
 render_nadir_kernel(const float* __restrict__ quad, const float* __restrict__ marker,
                     const float* __restrict__ brightness, float* __restrict__ out,
                     Geometry g) {
-  const int hw = g.H * g.W;
-  const int p = blockIdx.x * THREADS + threadIdx.x;
-  if (p >= hw) return;
-  const int env = blockIdx.y;
-  const float u = (float)(p % g.W);
-  const float v = (float)(p / g.W);
-
+  __shared__ Terms tm;
+  const int env = blockIdx.y, v0 = blockIdx.x * BAND_ROWS;
+  const int rows = min(BAND_ROWS, g.H - v0);
   const float cam_x = quad[3 * env + 0];
   const float cam_y = quad[3 * env + 1];
   const float height = fmaxf(quad[3 * env + 2] - g.ground_z, 1e-3f);
   const float bright = brightness ? brightness[env] : 1.f;
   const float mx = marker[2 * env + 0];
   const float my = marker[2 * env + 1];
+  const float soft = fmaxf(height / g.fx, 1e-6f);  // pixel footprint
 
   // Nadir ray meets the ground plane at t = height:
   // world = cam + height * ((u - cx)/fx, -(v - cy)/fy, -1).
-  const float x_w = cam_x + (u - g.cx) / g.fx * height;
-  const float y_w = cam_y - (v - g.cy) / g.fy * height;
-  const float soft = fmaxf(height / g.fx, 1e-6f);  // pixel footprint
+  for (int k = threadIdx.x; k < g.W + rows; k += THREADS) {
+    if (k < g.W) {
+      const float x_w = cam_x + ((float)k - g.cx) / g.fx * height;
+      const AxisTerms a = axis_terms(x_w, mx, g.half_w, g.square, soft);
+      tm.x[k] = x_w;
+      tm.px[k] = a.wave;
+      tm.bx[k] = a.board;
+      tm.cx[k] = a.cover;
+      tm.sx[k] = sinf(x_w * 1.7f);
+    } else {
+      const int i = k - g.W;
+      const float y_w = cam_y - ((float)(v0 + i) - g.cy) / g.fy * height;
+      const AxisTerms a = axis_terms(y_w, my, g.half_h, g.square, soft);
+      tm.y[i] = y_w;
+      tm.py[i] = a.wave;
+      tm.by[i] = a.board;
+      tm.cy[i] = a.cover;
+      tm.cyw[i] = cosf(y_w * 1.3f);
+    }
+  }
+  __syncthreads();
 
-  const float rel_x = x_w - mx;
-  const float rel_y = y_w - my;
-  const float px = square_wave(rel_x + g.half_w, g.square, soft);
-  const float py = square_wave(rel_y + g.half_h, g.square, soft);
-  const float checker = px * (1.f - py) + py * (1.f - px);
-  const float val = DARK + (LIGHT - DARK) * checker;
-
-  const float ax = fabsf(rel_x), ay = fabsf(rel_y);
-  const float on_board = clip01((g.half_w - ax) / soft + 0.5f) *
-                         clip01((g.half_h - ay) / soft + 0.5f);
-  const float coverage = clip01((g.half_w + g.square - ax) / soft + 0.5f) *
-                         clip01((g.half_h + g.square - ay) / soft + 0.5f);
-  const float wave = 0.06f * sinf(x_w * 1.7f) * cosf(y_w * 1.3f) +
-                     0.04f * sinf(x_w * 5.1f + y_w * 3.7f);
-  const float board = val * on_board + BORDER * (1.f - on_board);
-
-  float* img = out + (size_t)env * 3 * hw + p;
+  const size_t hw = (size_t)g.H * g.W;
+  float* img = out + (size_t)env * 3 * hw + (size_t)v0 * g.W;
+  if ((g.W & 3) == 0) {
+    const int quads = g.W / 4;
+    for (int k = threadIdx.x; k < rows * quads; k += THREADS) {
+      const int i = k / quads, u = 4 * (k % quads);
+      const float4 x = lds4(tm.x + u), px = lds4(tm.px + u), bx = lds4(tm.bx + u),
+                   cx = lds4(tm.cx + u), sx = lds4(tm.sx + u);
+      const Col cols[4] = {{x.x, px.x, bx.x, cx.x, sx.x}, {x.y, px.y, bx.y, cx.y, sx.y},
+                           {x.z, px.z, bx.z, cx.z, sx.z}, {x.w, px.w, bx.w, cx.w, sx.w}};
+      float p[4][3];
 #pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    const float ground = clip01(GROUND[c] + wave);
-    const float rgb = board * coverage + ground * (1.f - coverage);
-    img[(size_t)c * hw] = clip01(rgb * bright);
+      for (int j = 0; j < 4; ++j) pixel(cols[j], tm, i, bright, p[j]);
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        *reinterpret_cast<float4*>(img + c * hw + (size_t)i * g.W + u) =
+            make_float4(p[0][c], p[1][c], p[2][c], p[3][c]);
+    }
+  } else {
+    for (int k = threadIdx.x; k < rows * g.W; k += THREADS) {
+      const int i = k / g.W, u = k % g.W;
+      const Col col{tm.x[u], tm.px[u], tm.bx[u], tm.cx[u], tm.sx[u]};
+      float p[3];
+      pixel(col, tm, i, bright, p);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) img[c * hw + (size_t)i * g.W + u] = p[c];
+    }
   }
 }
 
@@ -112,21 +188,23 @@ extern "C" {
 
 // Launches the render on `stream` and returns cudaGetLastError(): a launch
 // the card refuses never runs and is reported only here. `brightness` may
-// be null (brightness 1).
+// be null (brightness 1); W must be at most 256.
 int render_nadir(const float* quad, const float* marker, const float* brightness, float* out,
                  int B, int H, int W, float fx, float fy, float cx, float cy, float square,
                  float half_w, float half_h, float ground_z, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (B == 0) return 0;
+  if (W > MAX_W) return (int)cudaErrorInvalidValue;
+  if (B == 0 || H == 0 || W == 0) return 0;
   Geometry g{H, W, fx, fy, cx, cy, square, half_w, half_h, ground_z};
-  const dim3 grid((H * W + THREADS - 1) / THREADS, B);
+  const dim3 grid((H + BAND_ROWS - 1) / BAND_ROWS, B);
   render_nadir_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       quad, marker, brightness, out, g);
   return (int)cudaGetLastError();
 }
 
-// Dynamic shared memory of the kernel in bytes (none).
+// Dynamic shared memory of the kernel in bytes (none; its column and row
+// terms are static).
 int render_nadir_smem_bytes() { return 0; }
 
 const char* cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

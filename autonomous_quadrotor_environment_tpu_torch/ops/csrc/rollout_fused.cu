@@ -1,38 +1,65 @@
 // Whole-rollout kernel for Hopper (sm_90a): T env steps of B hover envs,
-// each step the actor + critic forward, Gaussian sampling, RK4 physics,
-// reward, termination and auto-reset from a P-deep pool, in one launch.
+// each step the actor forward, Gaussian sampling, RK4 physics, reward,
+// termination and auto-reset from a P-deep pool, then the critic over every
+// observation of the rollout, in one launch.
 //
 // Replaces the TPU kernel `ops/rollout_fused.py:fused_rollout` of the JAX
 // package (Pallas body `_kernel`); computes what the port's
 // `ops/rollout_fused.py` step body (`_policy`, `step_math`, `_pool_select`,
 // `_merge_reset`) computes, T times.
 //
-// Design. Envs are independent, so a block owns a tile of TILE envs for all
-// T steps: the TPU's sequential time-chunk grid axis is the loop over t
-// inside the block, and its `state_out` accumulator is the tile's packed
-// state, which stays in shared memory from the first step to the last.
-// Nothing crosses blocks. At B = 8192 and TILE = 32 the grid has 256 blocks
-// of about 82 KB shared memory each, two resident on each of the 132 SMs.
-// The interface keeps the (features, envs) layout, envs fastest, so a
-// warp's reads and writes of noise, pool, obs and misc are coalesced.
-//
-// Per step: (1) the 75-row observation slice is stored; (2) thread j of
-// 2*H computes hidden unit j of the actor (j < H) or critic (j >= H) for the
-// tile's 32 envs, layer 1 then layer 2, with the weights read through the
-// read-only path and the activations kept in shared memory; (3) five warps
-// compute the 4 action means and the value; (4) one thread per env runs the
-// physics, reward and reset on its column of the state.
-//
 // Bound. At B = 8192, T = 256, H = 128 the forward passes are about
 // 2.2e11 f32 FLOP (105,216 per env-step) against about 0.82 GB of device
-// memory traffic (obs and misc out, noise, pool and state in), so the
-// kernel is compute bound: on the 67 TFLOP/s of the H100's f32 CUDA cores
-// the bound is about 3.3 ms. This first design does nothing about that yet:
-// it runs the products on the CUDA cores in plain f32, and the actor+critic
-// weights (52,608 f32, 206 KB) do not fit beside the activations in one
-// block's shared memory, so they are re-read from L1/L2 every step. Tensor
-// cores (TF32 or bf16, with a stated tolerance) and weights staged in
-// shared memory are later work.
+// memory traffic (obs and misc out, noise, pool and state in): 3.29 ms on
+// the 67 TFLOP/s of the H100's f32 CUDA cores, by operations. Over 99% of
+// the FLOP are in the four 128-wide products, which run here on the tensor
+// cores in 3xTF32 (three TF32 products per f32 product): 1.34 ms at the
+// 495 TFLOP/s TF32 peak, without the physics and the tanhf.
+//
+// Design. Envs are independent, so a CTA owns a tile of TILE = 64 envs for
+// all T steps: the TPU's sequential time-chunk grid axis is the loop over t
+// inside the CTA, and its `state_out` accumulator is the tile's packed state,
+// which stays in shared memory from the first step to the last. Nothing
+// crosses CTAs; one 320-thread CTA fills an SM (128 CTAs at B = 8192).
+//
+// * Only the actor is in the closed loop: dynamics, reward and reset read
+//   the action means, never the value. The critic runs after the loop, in
+//   the same launch, over the tile's T observations read back from obs.
+// * The actor's weights are resident in shared memory for the loop, the
+//   critic's in the same buffers after it, each loaded once per CTA: W1
+//   (128 x 80, inputs 75-79 zero, rows padded to 84), W2 (128 x 128,
+//   swizzled), W3 and the biases.
+// * The products on the tensor cores in 3xTF32 (`mma_tf32.cuh`): each f32
+//   operand splits into hi and lo, a product is lo hi + hi lo + hi hi with
+//   f32 sums (mma.sync m16n8k8), which keeps f32 accuracy; single-pass TF32
+//   does not, and 32 closed-loop steps would carry its 3e-4 past the 1e-4
+//   gate. An activation operand is split once, where it is made, and
+//   stored as its two parts (the observations by a pass over the state's
+//   hist rows, h1 by layer 1's epilogue, swizzled), so the eight warps that
+//   read it do not each split it again; the weights are split as read. h2
+//   stays in the accumulators, from which each thread forms its units'
+//   share of the four means (or the value); the lanes and warps sum them.
+// * Two groups of 32 envs overlap the physics with the products: eight MMA
+//   warps run group 0's products, then group 1's, while warp 8 (group 0) or
+//   warp 9 (group 1) stores its group's observations and runs its sampling,
+//   physics, reward, record and reset, one thread per env. Named barriers
+//   hand each group back and forth (READY: state stepped; MEANS: partial
+//   means written) and a ninth orders the MMA warps' passes; the physics
+//   warps prefetch the next step's noise into registers. The MMA warps set
+//   the pace: the physics (3.7 us a step) never holds them up.
+// * The critic pass walks the tile's T chunks of 64 observations: chunk
+//   t + 1 is copied by cp.async while chunk t computes; each of the 8 warps
+//   owns a 32 x 32 tile of each layer; warps 8-9 write the values (misc row
+//   8).
+//
+// Shared memory (bytes), one CTA of 320 threads per SM: W1 43,008, W2
+// 65,536, W3 2,048, biases 1,056; the packed state (128 rows, 36,864) and,
+// in its place during the critic pass, two 80-row input buffers (46,080);
+// in the loop a group's split inputs 25,600, its split h1 32,768 and the
+// partial means 8,192, in their place during the critic pass the split h1
+// of 64 rows 65,536 and the partial values 1,024: 224,288 of the 232,448 a
+// CTA may have. Registers: 128 a thread, no spills (ptxas -v for sm_90a;
+// the build phase of chip_smoke.py prints them).
 //
 // Math stays accurate (no fast-math): tanhf, sqrtf and IEEE division; the
 // logprob needs no exp. Euler angles use the same Cephes atan2/asin
@@ -40,17 +67,70 @@
 
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include "mma_tf32.cuh"
 
 namespace {
 
+using ppo_grad::ColsPlain;
+using ppo_grad::RowsPlain;
+using ppo_grad::RowsSwz;
+using ppo_grad::Split;
+using ppo_grad::split_store;
+using ppo_grad::swz;
+
 constexpr int ROWS = 128;
 constexpr int OBS = 75;
-constexpr int H = 128;          // hidden width
-constexpr int TILE = 32;        // envs per block
-constexpr int THREADS = 2 * H;  // one thread per hidden unit of actor + critic
+constexpr int K1 = 80;            // OBS padded to the MMA depth; W1's inputs 75-79 are zero
+constexpr int H = 128;            // hidden width
+constexpr int NA = 4;             // action means
 constexpr int MISC = 16;
-constexpr int NOUT = 5;         // 4 action means + 1 value
-constexpr int SMEM_FLOATS = (ROWS + 2 * H + 2 * H + NOUT) * TILE;
+constexpr int TILE = 64;          // envs per CTA
+constexpr int GROUP = 32;         // envs per group: one physics warp
+constexpr int MMA_WARPS = 8;
+constexpr int MMA_THREADS = 32 * MMA_WARPS;
+constexpr int THREADS = MMA_THREADS + 32 * (TILE / GROUP);
+constexpr int SLD = TILE + 8;     // row stride of the packed state and the critic's inputs
+constexpr int XLD = GROUP + 8;    // row stride of a group's split inputs
+constexpr int W1_LD = K1 + 4;     // row stride of W1
+constexpr int HP_GROUP = MMA_WARPS * NA * GROUP;  // one group's partial means
+constexpr int UNROLL = 4;         // depth steps of a product unrolled (4 beat 2 and 16)
+
+// Shared memory (floats). Operands stored split hold their hi parts, then
+// at a fixed offset their lo parts.
+constexpr int S_W1 = 0;                          // [H][W1_LD] W1 (out, in)
+constexpr int S_W2 = S_W1 + H * W1_LD;           // [H][H] W2 (out, in), swizzled
+constexpr int S_W3 = S_W2 + H * H;               // [NA][H] W3, zero rows pad the critic's
+constexpr int S_B1 = S_W3 + NA * H;
+constexpr int S_B2 = S_B1 + H;
+constexpr int S_B3 = S_B2 + H;                   // [NA], zero pad
+constexpr int S_ST = S_B3 + NA + 4;              // [ROWS][SLD] state; then [2][K1][SLD] inputs
+constexpr int S_LB = S_ST + 2 * K1 * SLD;        // the layers' buffers, in the loop:
+constexpr int S_XS = S_LB;                       //   [2][K1][XLD] a group's inputs, split
+constexpr int S_H1 = S_XS + 2 * K1 * XLD;        //   [2][GROUP][H] its h1, split, swizzled
+constexpr int S_HP = S_H1 + 2 * GROUP * H;       //   [2][MMA_WARPS][NA][GROUP] partial means
+constexpr int S_H1C = S_LB;                      // in the critic pass: [2][TILE][H] h1, split,
+constexpr int S_HPC = S_H1C + 2 * TILE * H;      //   swizzled; [4][TILE] partial values
+constexpr int SMEM_FLOATS = S_HP + 2 * HP_GROUP;
+constexpr int SMEM_BYTES = SMEM_FLOATS * (int)sizeof(float);
+
+// Named barriers (0 is __syncthreads): the MMA warps' own, and per group
+// READY (its state stepped, MMA warps wait) and MEANS (its partial means
+// written, its physics warp waits).
+constexpr int BAR_MMA = 1, BAR_READY = 2, BAR_MEANS = 4;
+constexpr int HANDOFF = MMA_THREADS + 32;
+
+static_assert(ROWS * SLD <= 2 * K1 * SLD, "the inputs' buffers cover the state");
+static_assert(S_HPC + 4 * TILE <= SMEM_FLOATS, "the critic pass's buffers fit the loop's");
+static_assert(S_W2 % 4 == 0 && S_ST % 4 == 0 && S_XS % 4 == 0 && S_H1 % 4 == 0 &&
+              S_HP % 4 == 0 && S_H1C % 4 == 0 && S_HPC % 4 == 0 && SLD % 4 == 0,
+              "16-byte alignment");
+static_assert(SLD % 32 == 8 && XLD % 32 == 8,
+              "ColsPlain reads conflict-free at a stride of 8 mod 32");
+static_assert(SMEM_BYTES <= 232448, "more shared memory than a CTA may have");
+static_assert(TILE == 2 * GROUP && GROUP == 32 && H == 128 && MMA_WARPS == 8,
+              "warp tilings assume these");
 
 // Packed-state rows (ops/rollout_fused.py).
 constexpr int R_POS = 0, R_VEL = 3, R_QUAT = 6, R_OMEGA = 10, R_HIST = 13;
@@ -81,7 +161,7 @@ struct Consts {
   int training;
 };
 
-// The 12 weight leaves, matrices in (in, out) layout, biases flat.
+// The 12 leaves as `nn.Linear` holds them: matrices (out, in), biases flat.
 struct Weights {
   const float* w1; const float* b1; const float* w2; const float* b2;
   const float* w3; const float* b3;
@@ -90,11 +170,6 @@ struct Weights {
 };
 
 namespace {
-
-// Activation rows are stored with their 16-byte chunks XOR-swizzled by the
-// row index, so the 8 threads of a quarter warp that each store their own
-// row land in 8 different bank groups.
-__device__ __forceinline__ int chunk(int row, int c) { return c ^ (row & 7); }
 
 __device__ __forceinline__ float atan_01(float a) {
   const bool big = a > 0.41421356f;
@@ -166,11 +241,11 @@ __device__ __forceinline__ void deriv(const float* vel, const float* q, const fl
   dq[3] = 0.5f * (w2 * a + w1 * b - w0 * c);
 }
 
-// One env step on the packed state column `s` (row r at s[r * TILE]), in
+// One env step on the packed state column `s` (row r at s[r * SLD]), in
 // place: the port's `step_math` for a single env.
 __device__ void step_env(float* s, const float* a_raw, const Consts& C,
                          float& reward_out, float& done_out, float& solved_out) {
-#define S_(r) s[(r) * TILE]
+#define S_(r) s[(r) * SLD]
   float pos[3], vel[3], q[4], om[3];
   for (int k = 0; k < 3; ++k) {
     pos[k] = S_(R_POS + k);
@@ -287,13 +362,13 @@ __device__ void step_env(float* s, const float* a_raw, const Consts& C,
   // vel error, q, dq].
   for (int r = 0; r < OBS - 15; ++r) S_(R_HIST + r) = S_(R_HIST + 15 + r);
   float* tail = &S_(R_HIST + OBS - 15);
-  for (int k = 0; k < 4; ++k) tail[k * TILE] = a_raw[k];
-  for (int k = 0; k < 3; ++k) tail[(4 + k) * TILE] = verr[k];
-  for (int k = 0; k < 4; ++k) tail[(7 + k) * TILE] = q[k];
-  tail[11 * TILE] = 0.5f * (-om[0] * q1 - om[1] * q2 - om[2] * q3);
-  tail[12 * TILE] = 0.5f * (om[0] * q0 + om[2] * q2 - om[1] * q3);
-  tail[13 * TILE] = 0.5f * (om[1] * q0 - om[2] * q1 + om[0] * q3);
-  tail[14 * TILE] = 0.5f * (om[2] * q0 + om[1] * q1 - om[0] * q2);
+  for (int k = 0; k < 4; ++k) tail[k * SLD] = a_raw[k];
+  for (int k = 0; k < 3; ++k) tail[(4 + k) * SLD] = verr[k];
+  for (int k = 0; k < 4; ++k) tail[(7 + k) * SLD] = q[k];
+  tail[11 * SLD] = 0.5f * (-om[0] * q1 - om[1] * q2 - om[2] * q3);
+  tail[12 * SLD] = 0.5f * (om[0] * q0 + om[2] * q2 - om[1] * q3);
+  tail[13 * SLD] = 0.5f * (om[1] * q0 - om[2] * q1 + om[0] * q3);
+  tail[14 * SLD] = 0.5f * (om[2] * q0 + om[1] * q1 - om[0] * q2);
 
   for (int k = 0; k < 3; ++k) {
     S_(R_POS + k) = pos[k];
@@ -318,159 +393,293 @@ __device__ void step_env(float* s, const float* a_raw, const Consts& C,
   solved_out = solved ? 1.0f : 0.0f;
 }
 
-__global__ void __launch_bounds__(THREADS, 2)
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
+// One head's weights into shared memory, from the (out, in) leaves: W1 with
+// inputs 75-79 zero, W2 swizzled, W3 and b3 with rows n_out.. zero.
+__device__ __forceinline__ void load_head(float* sm, const float* __restrict__ w1,
+                                          const float* __restrict__ b1,
+                                          const float* __restrict__ w2,
+                                          const float* __restrict__ b2,
+                                          const float* __restrict__ w3,
+                                          const float* __restrict__ b3, int n_out) {
+  const int tid = threadIdx.x;
+  for (int e = tid; e < H * W1_LD; e += THREADS) {
+    const int j = e / W1_LD, f = e % W1_LD;
+    sm[S_W1 + e] = f < OBS ? __ldg(w1 + j * OBS + f) : 0.f;
+  }
+  for (int e = tid; e < H * H; e += THREADS) {
+    const int j = e / H, i = e % H;
+    sm[S_W2 + j * H + (i ^ swz(j))] = __ldg(w2 + e);
+  }
+  for (int e = tid; e < NA * H; e += THREADS) sm[S_W3 + e] = e < n_out * H ? __ldg(w3 + e) : 0.f;
+  for (int e = tid; e < H; e += THREADS) {
+    sm[S_B1 + e] = __ldg(b1 + e);
+    sm[S_B2 + e] = __ldg(b2 + e);
+  }
+  if (tid < NA) sm[S_B3 + tid] = tid < n_out ? __ldg(b3 + tid) : 0.f;
+}
+
+// A hidden layer on the warp's MT x NT tiles of 16 x 8 at rows m0, units n0
+// of the output: h[r][j] = tanh(sum_k A(r, k) B(k, j) + bias[j]), stored
+// split for the next layer's A: its hi parts in dst [rows][H] swizzled, its
+// lo parts at dst + lo_offset.
+template <int MT, int NT, class VA, class VB>
+__device__ __forceinline__ void hidden_tanh(const VA& a, const VB& b, int steps,
+                                            const float* bias, int m0, int n0, float* dst,
+                                            int lo_offset) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float acc[MT][NT][4];
+  ppo_grad::zero(acc);
+  ppo_grad::warp_mma<MT, NT, UNROLL>(acc, a, b, steps);
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int j = n0 + 8 * nt + 2 * t;
+    const float c0 = bias[j], c1 = bias[j + 1];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = m0 + 16 * mt + g + 8 * hh;
+        const float2 p0 = split_store(tanhf(acc[mt][nt][2 * hh] + c0));
+        const float2 p1 = split_store(tanhf(acc[mt][nt][2 * hh + 1] + c1));
+        float* d = dst + r * H + (j ^ swz(r));
+        *reinterpret_cast<float2*>(d) = make_float2(p0.x, p1.x);
+        *reinterpret_cast<float2*>(d + lo_offset) = make_float2(p0.y, p1.y);
+      }
+  }
+}
+
+// The last hidden layer and the head's share of this warp: h = tanh(A B +
+// bias) stays in the accumulators, and for each of the warp's rows r and
+// outputs o < NO the sum over its units j of h[r][j] W3[o][j], summed over
+// the 4 lanes of a row, goes to part[(slot * NO + o) * rows + r].
+template <int MT, int NT, int NO, class VA, class VB>
+__device__ __forceinline__ void hidden_head(const VA& a, const VB& b, int steps,
+                                            const float* bias, const float* w3, int m0,
+                                            int n0, int slot, int rows, float* part) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float acc[MT][NT][4];
+  ppo_grad::zero(acc);
+  ppo_grad::warp_mma<MT, NT, UNROLL>(acc, a, b, steps);
+  float s[MT][2][NO];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int o = 0; o < NO; ++o) s[mt][hh][o] = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int j = n0 + 8 * nt + 2 * t;
+    const float c0 = bias[j], c1 = bias[j + 1];
+    float2 w[NO];
+#pragma unroll
+    for (int o = 0; o < NO; ++o) w[o] = *reinterpret_cast<const float2*>(w3 + o * H + j);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const float h0 = tanhf(acc[mt][nt][2 * hh] + c0);
+        const float h1 = tanhf(acc[mt][nt][2 * hh + 1] + c1);
+#pragma unroll
+        for (int o = 0; o < NO; ++o) s[mt][hh][o] = fmaf(h1, w[o].y, fmaf(h0, w[o].x, s[mt][hh][o]));
+      }
+  }
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int o = 0; o < NO; ++o) {
+        float v = s[mt][hh][o];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        if (t == 0) part[(slot * NO + o) * rows + m0 + 16 * mt + g + 8 * hh] = v;
+      }
+}
+
+// Chunk t of the critic's inputs, obs rows [t][0:75][b0:b0+64], into X
+// [K1][SLD] (envs past the tile's nval zero) by cp.async: 16-byte copies
+// where the rows allow (B % 4 == 0), else 4-byte ones.
+__device__ __forceinline__ void stage_obs(float* X, const float* obs, int t, int B, int b0,
+                                          int nval) {
+  const float* src = obs + (size_t)t * OBS * B + b0;
+  const bool vec = (B & 3) == 0;
+  for (int idx = threadIdx.x; idx < OBS * (TILE / 4); idx += THREADS) {
+    const int k = idx / (TILE / 4), c = 4 * (idx % (TILE / 4));
+    float* dst = X + k * SLD + c;
+    const float* s = src + (size_t)k * B + c;
+    if (vec && c + 4 <= nval) {
+      ppo_grad::cp_async16(dst, s);
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (c + u < nval) ppo_grad::cp_async4(dst + u, s + u);
+        else dst[u] = 0.f;
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
 rollout_kernel(const float* __restrict__ s0, const float* __restrict__ noise,
                const float* __restrict__ pool, const Weights W,
                float* __restrict__ obs_out, float* __restrict__ misc_out,
                float* __restrict__ s_out, int B, int T, int P, const Consts C,
                float action_std, float lp_const) {
   extern __shared__ float4 smem4[];
-  float* S = reinterpret_cast<float*>(smem4);  // [ROWS][TILE] packed state
-  float* H1 = S + ROWS * TILE;                  // [2H][TILE] layer-1 activations
-  float* H2 = H1 + 2 * H * TILE;                // [2H][TILE] layer-2 activations
-  float* OUT = H2 + 2 * H * TILE;               // [NOUT][TILE] means, value
-  float4* H1_4 = reinterpret_cast<float4*>(H1);
-  float4* H2_4 = reinterpret_cast<float4*>(H2);
+  float* sm = reinterpret_cast<float*>(smem4);
+  float* S = sm + S_ST;   // [ROWS][SLD] packed state of the tile
+  float* HP = sm + S_HP;
 
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int b0 = blockIdx.x * TILE;
   const int nval = min(TILE, B - b0);
 
+  load_head(sm, W.w1, W.b1, W.w2, W.b2, W.w3, W.b3, NA);
   for (int idx = tid; idx < ROWS * TILE; idx += THREADS) {
     const int r = idx / TILE, e = idx % TILE;
-    S[idx] = e < nval ? s0[(size_t)r * B + b0 + e] : 0.0f;
+    S[r * SLD + e] = e < nval ? s0[(size_t)r * B + b0 + e] : 0.0f;
   }
-
-  const bool actor = tid < H;
-  const int j = actor ? tid : tid - H;
-  const float* w1 = actor ? W.w1 : W.v1;
-  const float* w2 = actor ? W.w2 : W.v2;
-  const float bias1 = __ldg((actor ? W.b1 : W.c1) + j);
-  const float bias2 = __ldg((actor ? W.b2 : W.c2) + j);
-  const int head = actor ? 0 : H;  // first activation row of this head
   __syncthreads();
 
-  for (int t = 0; t < T; ++t) {
-    // (1) observation = the featurizer window before the step
-    float* obs_t = obs_out + (size_t)t * OBS * B + b0;
-    for (int idx = tid; idx < OBS * TILE; idx += THREADS) {
-      const int r = idx / TILE, e = idx % TILE;
-      if (e < nval) obs_t[(size_t)r * B + e] = S[(R_HIST + r) * TILE + e];
+  if (warp < MMA_WARPS) {
+    // The MMA warps: group 0's products, then group 1's, T times.
+    const int n0 = 16 * warp;
+    for (int h = 0; h < 2 * T; ++h) {
+      const int grp = h & 1, c0 = GROUP * grp;
+      bar_sync(BAR_READY + grp, HANDOFF);
+      // (1) the group's observations (the featurizer window before the
+      // step), split once for the 8 warps; inputs 75-79 zero
+      for (int idx = tid; idx < K1 * GROUP; idx += MMA_THREADS) {
+        const int k = idx / GROUP, e = idx % GROUP;
+        const float2 x = split_store(k < OBS ? S[(R_HIST + k) * SLD + c0 + e] : 0.0f);
+        sm[S_XS + k * XLD + e] = x.x;
+        sm[S_XS + K1 * XLD + k * XLD + e] = x.y;
+      }
+      bar_sync(BAR_MMA, MMA_THREADS);
+      // (2) layer 1, each warp the group's 32 envs x 16 units
+      hidden_tanh<2, 2>(Split<ColsPlain<XLD>>(sm + S_XS, K1 * XLD, 0),
+                        RowsPlain<W1_LD>(sm + S_W1, n0), K1 / 8, sm + S_B1, 0, n0, sm + S_H1,
+                        GROUP * H);
+      bar_sync(BAR_MMA, MMA_THREADS);
+      // (3) layer 2 and each warp's share of the 4 means
+      hidden_head<2, 2, NA>(Split<RowsSwz<H>>(sm + S_H1, GROUP * H, 0),
+                            RowsSwz<H>(sm + S_W2, n0), H / 8, sm + S_B2, sm + S_W3, 0, n0, warp,
+                            GROUP, HP + grp * HP_GROUP);
+      bar_arrive(BAR_MEANS + grp, HANDOFF);
     }
-
-    // (2a) layer 1: unit j of this head for all TILE envs
-    {
-      float acc[TILE];
+  } else {
+    // (4) a physics warp: its group's sampling, step, record and reset, one
+    // thread per env.
+    const int grp = warp - MMA_WARPS, e = GROUP * grp + lane;
+    const bool valid = e < nval;
+    const size_t col = (size_t)b0 + e;
+    float* s = S + e;
+    const float* part = HP + grp * HP_GROUP + lane;
+    float eps[NA];
 #pragma unroll
-      for (int e = 0; e < TILE; ++e) acc[e] = 0.0f;
-      const float4* x4 = reinterpret_cast<const float4*>(S + R_HIST * TILE);
-      for (int k = 0; k < OBS; ++k) {
-        const float w = __ldg(w1 + k * H + j);
+    for (int o = 0; o < NA; ++o) eps[o] = valid && T > 0 ? noise[(size_t)o * B + col] : 0.0f;
+    if (T > 0) bar_arrive(BAR_READY + grp, HANDOFF);
+    for (int t = 0; t < T; ++t) {
+      // its observation: the featurizer window before the step
+      if (valid) {
+        float* o = obs_out + (size_t)t * OBS * B + col;
+        for (int r = 0; r < OBS; ++r) o[(size_t)r * B] = s[(R_HIST + r) * SLD];
+      }
+      float next[NA];
 #pragma unroll
-        for (int c = 0; c < TILE / 4; ++c) {
-          const float4 x = x4[k * (TILE / 4) + c];
-          acc[4 * c + 0] += w * x.x;
-          acc[4 * c + 1] += w * x.y;
-          acc[4 * c + 2] += w * x.z;
-          acc[4 * c + 3] += w * x.w;
-        }
-      }
+      for (int o = 0; o < NA; ++o)
+        next[o] = valid && t + 1 < T ? noise[((size_t)(t + 1) * NA + o) * B + col] : 0.0f;
+      bar_sync(BAR_MEANS + grp, HANDOFF);
+      float a_raw[NA], lp[NA];
 #pragma unroll
-      for (int c = 0; c < TILE / 4; ++c) {
-        H1_4[tid * (TILE / 4) + chunk(tid, c)] =
-            make_float4(tanhf(acc[4 * c + 0] + bias1), tanhf(acc[4 * c + 1] + bias1),
-                        tanhf(acc[4 * c + 2] + bias1), tanhf(acc[4 * c + 3] + bias1));
-      }
-    }
-    __syncthreads();
-
-    // (2b) layer 2
-    {
-      float acc[TILE];
+      for (int o = 0; o < NA; ++o) {
+        float m = part[o * GROUP];
 #pragma unroll
-      for (int e = 0; e < TILE; ++e) acc[e] = 0.0f;
-      for (int k = 0; k < H; ++k) {
-        const float w = __ldg(w2 + k * H + j);
-        const int row = head + k;
-#pragma unroll
-        for (int c = 0; c < TILE / 4; ++c) {
-          const float4 x = H1_4[row * (TILE / 4) + chunk(row, c)];
-          acc[4 * c + 0] += w * x.x;
-          acc[4 * c + 1] += w * x.y;
-          acc[4 * c + 2] += w * x.z;
-          acc[4 * c + 3] += w * x.w;
-        }
+        for (int w = 1; w < MMA_WARPS; ++w) m += part[(w * NA + o) * GROUP];
+        a_raw[o] = tanhf(m + sm[S_B3 + o]) + action_std * eps[o];
+        lp[o] = -0.5f * eps[o] * eps[o] - lp_const;
       }
-#pragma unroll
-      for (int c = 0; c < TILE / 4; ++c) {
-        H2_4[tid * (TILE / 4) + chunk(tid, c)] =
-            make_float4(tanhf(acc[4 * c + 0] + bias2), tanhf(acc[4 * c + 1] + bias2),
-                        tanhf(acc[4 * c + 2] + bias2), tanhf(acc[4 * c + 3] + bias2));
-      }
-    }
-    __syncthreads();
-
-    // (3) heads: warps 0-3 the action means, warp 4 the value
-    if (tid < NOUT * TILE) {
-      const int o = tid / TILE, e = tid % TILE;
-      const int c = e >> 2, lane4 = e & 3;
-      float acc = 0.0f;
-      if (o < 4) {
-        for (int k = 0; k < H; ++k) {
-          acc += __ldg(W.w3 + k * 4 + o) * H2[(k * (TILE / 4) + chunk(k, c)) * 4 + lane4];
-        }
-        OUT[o * TILE + e] = tanhf(acc + __ldg(W.b3 + o));
-      } else {
-        for (int k = 0; k < H; ++k) {
-          const int row = H + k;
-          acc += __ldg(W.v3 + k) * H2[(row * (TILE / 4) + chunk(row, c)) * 4 + lane4];
-        }
-        OUT[4 * TILE + e] = acc + __ldg(W.c3);
-      }
-    }
-    __syncthreads();
-
-    // (4) sample, step, record, reset: one thread per env
-    if (tid < TILE) {
-      const int e = tid;
-      const bool valid = e < nval;
-      const size_t col = (size_t)b0 + e;
-      float a_raw[4], lp[4];
-      for (int o = 0; o < 4; ++o) {
-        const float eps = valid ? noise[((size_t)t * 4 + o) * B + col] : 0.0f;
-        a_raw[o] = OUT[o * TILE + e] + action_std * eps;
-        lp[o] = -0.5f * eps * eps - lp_const;
-      }
-      const float value = OUT[4 * TILE + e];
-      float* s = S + e;
       float reward, done, solved;
       step_env(s, a_raw, C, reward, done, solved);
       if (valid) {
         float* m = misc_out + (size_t)t * MISC * B + col;
-        for (int o = 0; o < 4; ++o) {
+#pragma unroll
+        for (int o = 0; o < NA; ++o) {
           m[(size_t)o * B] = a_raw[o];
           m[(size_t)(4 + o) * B] = lp[o];
           m[(size_t)(12 + o) * B] = 0.0f;
         }
-        m[(size_t)8 * B] = value;
         m[(size_t)9 * B] = reward;
         m[(size_t)10 * B] = done;
         m[(size_t)11 * B] = solved;
       }
-      const float slot = s[R_SLOT * TILE];
+      const float slot = s[R_SLOT * SLD];
       if (done > 0.5f && valid) {
         const int p = (int)fmodf(slot, (float)P);
         const float* fresh = pool + (size_t)p * ROWS * B + col;
-        for (int r = 0; r < ROWS; ++r) s[r * TILE] = fresh[(size_t)r * B];
+        for (int r = 0; r < ROWS; ++r) s[r * SLD] = fresh[(size_t)r * B];
       }
-      s[R_SLOT * TILE] = slot + done;
+      s[R_SLOT * SLD] = slot + done;
+#pragma unroll
+      for (int o = 0; o < NA; ++o) eps[o] = next[o];
+      __syncwarp();
+      if (t + 1 < T) bar_arrive(BAR_READY + grp, HANDOFF);
     }
-    __syncthreads();
   }
+  __threadfence();  // the loop's obs stores, before the critic pass reads them back
+  __syncthreads();
 
   for (int idx = tid; idx < ROWS * TILE; idx += THREADS) {
     const int r = idx / TILE, e = idx % TILE;
-    if (e < nval) s_out[(size_t)r * B + b0 + e] = S[idx];
+    if (e < nval) s_out[(size_t)r * B + b0 + e] = S[r * SLD + e];
+  }
+  load_head(sm, W.v1, W.c1, W.v2, W.c2, W.v3, W.c3, 1);
+  __syncthreads();
+
+  // (5) the critic over the T observation chunks of the tile: misc row 8.
+  float* X = sm + S_ST;  // [2][K1][SLD]; inputs 75-79 zero
+  for (int idx = tid; idx < 2 * (K1 - OBS) * SLD; idx += THREADS) {
+    const int buf = idx / ((K1 - OBS) * SLD), rest = idx % ((K1 - OBS) * SLD);
+    X[buf * K1 * SLD + OBS * SLD + rest] = 0.0f;
+  }
+  if (T > 0) {
+    stage_obs(X, obs_out, 0, B, b0, nval);
+    ppo_grad::cp_async_commit();
+  }
+  for (int t = 0; t < T; ++t) {
+    ppo_grad::cp_async_wait_all();
+    __syncthreads();  // chunk t staged; last chunk's values read from HP
+    if (t + 1 < T) {
+      stage_obs(X + ((t + 1) & 1) * K1 * SLD, obs_out, t + 1, B, b0, nval);
+      ppo_grad::cp_async_commit();
+    }
+    if (warp < MMA_WARPS) {
+      const int m0 = 32 * (warp & 1), n0 = 32 * (warp >> 1);
+      hidden_tanh<2, 4>(ColsPlain<SLD>(X + (t & 1) * K1 * SLD, m0),
+                        RowsPlain<W1_LD>(sm + S_W1, n0), K1 / 8, sm + S_B1, m0, n0,
+                        sm + S_H1C, TILE * H);
+      bar_sync(BAR_MMA, MMA_THREADS);
+      hidden_head<2, 4, 1>(Split<RowsSwz<H>>(sm + S_H1C, TILE * H, m0),
+                           RowsSwz<H>(sm + S_W2, n0), H / 8, sm + S_B2, sm + S_W3, m0, n0,
+                           warp >> 1, TILE, sm + S_HPC);
+    }
+    __syncthreads();
+    if (warp >= MMA_WARPS) {
+      const int e = tid - MMA_THREADS;
+      const float* hp = sm + S_HPC;
+      if (e < nval) {
+        misc_out[((size_t)t * MISC + 8) * B + b0 + e] =
+            ((hp[e] + hp[TILE + e]) + hp[2 * TILE + e]) + hp[3 * TILE + e] + sm[S_B3];
+      }
+    }
   }
 }
 
@@ -480,7 +689,7 @@ extern "C" {
 
 // Launches the rollout on `stream` and returns cudaGetLastError(): a launch
 // the card refuses (too much shared memory, bad configuration) never runs
-// and is reported only here.
+// and is reported only here. The 12 leaves come in `nn.Linear`'s layout.
 int rollout_fused(const float* s0, const float* noise, const float* pool,
                   const float* w1, const float* b1, const float* w2, const float* b2,
                   const float* w3, const float* b3, const float* v1, const float* c1,
@@ -489,22 +698,22 @@ int rollout_fused(const float* s0, const float* noise, const float* pool,
                   const Consts* consts, float action_std, float lp_const, int device,
                   void* stream) {
   const Weights W{w1, b1, w2, b2, w3, b3, v1, c1, v2, c2, v3, c3};
-  const size_t smem = SMEM_FLOATS * sizeof(float);
   // This library carries its own CUDA runtime, whose current device is not
   // the caller's: select the tensors' device before launching.
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(
-      rollout_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (B == 0) return 0;
+  err = cudaFuncSetAttribute(rollout_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (B + TILE - 1) / TILE;
-  rollout_kernel<<<blocks, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  rollout_kernel<<<blocks, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       s0, noise, pool, W, obs, misc, s_final, B, T, P, *consts, action_std, lp_const);
   return (int)cudaGetLastError();
 }
 
-// Dynamic shared memory of one block, in bytes.
-int rollout_fused_smem_bytes() { return (int)(SMEM_FLOATS * sizeof(float)); }
+// Dynamic shared memory of one CTA, in bytes.
+int rollout_fused_smem_bytes() { return SMEM_BYTES; }
 
 const char* cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

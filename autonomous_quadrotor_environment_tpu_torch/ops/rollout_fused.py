@@ -7,7 +7,8 @@ auto-reset -- for B envs over T steps:
 
 * on CUDA tensors, as one launch of the hand-written kernel in
   `csrc/rollout_fused.cu`, which keeps each env's packed state on chip for
-  all T steps;
+  all T steps, runs the actor's products on the tensor cores in 3xTF32
+  inside the loop and the critic over the stored observations after it;
 * on CPU tensors, as `rollout_plain`, a Python loop of exactly the per-step
   body below (the counterpart of the JAX package's `rollout_twin`), which
   is also the reference the kernel is held against on the card.
@@ -591,9 +592,8 @@ def _launch(s0, noise, pool, wT, C, action_std):
                 f"leaf {i}: the kernel takes hidden width {HIDDEN}: want float32 "
                 f"{shape} on {device}, got {w.dtype} {tuple(w.shape)} on {w.device}"
             )
-    # The kernel reads every weight matrix in flax's (in, out) layout, so
-    # that a warp's 32 hidden units read 32 neighbouring floats.
-    w_in_out = [w.t().contiguous() for w in wT]
+    # The kernel reads the leaves in `nn.Linear`'s (out, in) layout, as given.
+    leaves = [w.contiguous() for w in wT]
 
     obs = torch.empty(steps, OBS, b, dtype=torch.float32, device=device)
     misc = torch.empty(steps, MISC, b, dtype=torch.float32, device=device)
@@ -604,7 +604,7 @@ def _launch(s0, noise, pool, wT, C, action_std):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.rollout_fused(
             s0.data_ptr(), noise.data_ptr(), pool.data_ptr(),
-            *[w.data_ptr() for w in w_in_out],
+            *[w.data_ptr() for w in leaves],
             obs.data_ptr(), misc.data_ptr(), s_final.data_ptr(),
             b, steps, p_size, ctypes.addressof(consts),
             action_std, math.log(action_std) + 0.5 * _LOG_2PI,

@@ -33,11 +33,15 @@ It imports nothing of JAX. Each phase prints one flushed JSON line:
 5. render_vs_plain: the render kernel (B5) against its plain version on the
    same CUDA tensors at B=100 and B=4096 seeded poses (heights 0.01-7 m,
    markers N(0, 0.8), brightness 0.5-1.2): max abs error, pixels above
-   1e-5, a bit-equal relaunch; times against the bound.
+   1e-5, a bit-equal relaunch; times against the bound, bytes per second;
+   the kernel's device time per call from the profiler beside the time per
+   call by CUDA events (at B=100 the host's launch sets the latter).
 6. slice: the shipped solved controller through `rollout_batch_fused` at
    the bench shape (B=8192 envs, T=256 steps, P=4) with the launch counter
    set to 0 just before and read just after; then the kernel against the
-   plain version at that shape, and the times of both.
+   plain version at that shape, the times of both, the kernel's shares of
+   its f32 bound and of its tensor-core bound (`rollout_tc_bound`), and its
+   time at the learn phases' shape (1024 x 128).
 7. fly: 256 deterministic episodes of the solved controller (zero noise,
    T=1000 steps); each env's first episode must be solved in >= 90% of envs.
 8. landing_vs_plain: 8 decisions of the landing env at B=100 with the
@@ -366,6 +370,33 @@ def host_ms(fn, runs: int = 3) -> float:
     return (time.perf_counter() - t0) * 1e3 / runs
 
 
+def device_ms_per_call(fn, kernel: str, runs: int):
+    """The device time of the kernels whose name holds ``kernel`` per call
+    of ``fn``, from torch.profiler over ``runs`` calls (without the host's
+    time between launches, which CUDA events include when the host is
+    slower than the kernel); "not measured: ..." when the profiler shows
+    none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            sync()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and kernel in e.key]
+    except RuntimeError as err:
+        return f"not measured: {err}"
+    total_us = sum(getattr(e, "self_device_time_total", None)
+                   or getattr(e, "self_cuda_time_total", 0) for e in rows)
+    if not total_us:
+        return f"not measured: the profiler showed no {kernel} time"
+    return total_us / 1e3 / runs
+
+
 def card() -> str:
     """The card's name and power limit as nvidia-smi gives them."""
     smi = subprocess.run(
@@ -375,6 +406,13 @@ def card() -> str:
     return smi.stdout.strip().splitlines()[0]
 
 
+def rollout_flops(b: int, t: int, hidden: int) -> float:
+    """The forward passes' FLOP of one rollout: actor and critic, every
+    env-step (105,216 a step at hidden 128)."""
+    per_step = 2 * (2 * (rf.OBS * hidden + hidden * hidden) + hidden * 4 + hidden * 1)
+    return float(b) * t * per_step
+
+
 def bound(b: int, t: int, p: int, hidden: int) -> tuple[float, str, float, float]:
     """The least time the card could take for one rollout: the larger of
     the forward passes' f32 FLOP over the f32 peak and the bytes that must
@@ -382,14 +420,22 @@ def bound(b: int, t: int, p: int, hidden: int) -> tuple[float, str, float, float
     rate. The physics (~10^3 operations per env-step, under 1% of the
     forward passes) is left out of the count, which keeps the bound a lower
     bound."""
-    per_step = 2 * (2 * (rf.OBS * hidden + hidden * hidden) + hidden * 4 + hidden * 1)
-    flops = float(b) * t * per_step
+    flops = rollout_flops(b, t, hidden)
     weights = 2 * (rf.OBS * hidden + hidden + hidden * hidden + hidden) + (hidden * 4 + 4) + (hidden + 1)
     floats = rf.ROWS * b + t * 4 * b + p * rf.ROWS * b + weights \
         + t * rf.OBS * b + t * rf.MISC * b + rf.ROWS * b
     bytes_ = 4.0 * floats
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, bytes_ / PEAK_HBM_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, bytes_
+
+
+def rollout_tc_bound(b: int, t: int, hidden: int) -> float:
+    """The rollout kernel's least time on the tensor cores, in ms: 3xTF32
+    forms each f32 product as three TF32 products, so 3 x the forward FLOP
+    (`rollout_flops`) over the TF32 peak. Beside it the f32 bound (`bound`)
+    stays the bound of the function; the physics and the tanhf, on the CUDA
+    cores, are not in it."""
+    return 1e3 * 3.0 * rollout_flops(b, t, hidden) / PEAK_TF32_FLOPS
 
 
 GRAD_SMALL = (8, 1024, 128, 24)  # T, B, tile, blocks of the small shape
@@ -819,6 +865,14 @@ def phase_slice() -> dict:
     )
     inputs_ms = host_ms(lambda: fused_inputs(model, states, gen, cfg, BENCH_T, BENCH_P))
     bound_ms, bound_by, flops, bytes_ = bound(BENCH_B, BENCH_T, BENCH_P, model.hidden)
+    tc_ms = rollout_tc_bound(BENCH_B, BENCH_T, model.hidden)
+    del s0, noise, pool
+    # The kernel at the learn phases' shape, where 16 CTAs hold the card.
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    l_states = hover.reset(gen, cfg, n=LEARN_B)
+    l_in = fused_inputs(model, l_states, gen, cfg, LEARN_T, BENCH_P)
+    learn_ms = time_cuda(lambda: rf.fused_rollout(*l_in, cfg, ACTION_STD), 2, 10)
+    learn_bound_ms, learn_bound_by, _, _ = bound(LEARN_B, LEARN_T, BENCH_P, model.hidden)
     out = {
         "phase": "slice",
         "seconds": time.perf_counter() - t0,
@@ -841,6 +895,15 @@ def phase_slice() -> dict:
         "flops": flops,
         "bytes": bytes_,
         "achieved_f32_tflops": flops / (ms / 1e3) / 1e12,
+        "tc_bound_ms": tc_ms,
+        "share_of_f32_bound": bound_ms / ms,
+        "share_of_tc_bound": tc_ms / ms,
+        "learn_shape": {
+            "B": LEARN_B, "T": LEARN_T, "P": BENCH_P, "kernel_ms": learn_ms,
+            "bound_ms": learn_bound_ms, "bound_by": learn_bound_by,
+            "tc_bound_ms": rollout_tc_bound(LEARN_B, LEARN_T, model.hidden),
+            "env_steps_per_s": LEARN_B * LEARN_T / (learn_ms / 1e3),
+        },
     }
     emit(out)
     return out
@@ -1254,6 +1317,8 @@ def phase_render_vs_plain() -> dict:
         if not torch.equal(got, again):
             raise AssertionError(f"B5 at B={b}: a relaunch is not bit-equal")
         ms = time_cuda(lambda: rk.render_nadir_batch(quad, marker, brightness=bright), 10, 200)
+        device_ms = device_ms_per_call(
+            lambda: rk.render_nadir_batch(quad, marker, brightness=bright), "render_nadir", 50)
         plain_ms = time_cuda(lambda: rk.render_nadir_batch_plain(quad, marker, brightness=bright),
                              2, 10)
         bound_ms, bound_by, ops, bytes_ = render_bound(b, brightness=True)
@@ -1261,8 +1326,10 @@ def phase_render_vs_plain() -> dict:
             "B": b, "max_abs_err": max_err, "pixels_above_1e-5": int((diff > 1e-5).sum()),
             "pixels": diff.numel(), "bit_equal_relaunch": True,
             "min_height_m": (quad[:, 2] + 5.0).min().item(),
-            "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "kernel_ms": ms, "kernel_device_ms": device_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
             "bytes": bytes_, "ops": ops, "achieved_bytes_per_s": bytes_ / (ms / 1e3),
+            "share_of_memory_rate": bytes_ / (ms / 1e3) / PEAK_HBM_BYTES,
         })
     out = {"phase": "render_vs_plain", "seconds": time.perf_counter() - t0, "card": card(),
            "atol": 1e-4, "runs": runs}

@@ -16,7 +16,12 @@ import torch
 from autonomous_quadrotor_environment_tpu_torch.agents.networks import ActorCritic
 from autonomous_quadrotor_environment_tpu_torch.agents import ppo
 from autonomous_quadrotor_environment_tpu_torch.agents.ppo import fused_inputs
-from autonomous_quadrotor_environment_tpu_torch.config import EnvConfig, PPOConfig, TrainConfig
+from autonomous_quadrotor_environment_tpu_torch.config import (
+    CameraConfig,
+    EnvConfig,
+    PPOConfig,
+    TrainConfig,
+)
 from autonomous_quadrotor_environment_tpu_torch.envs import hover
 from autonomous_quadrotor_environment_tpu_torch.ops import ppo_fused as pr
 from autonomous_quadrotor_environment_tpu_torch.ops import ppo_fused_t as pf
@@ -68,6 +73,35 @@ def test_kernel_matches_plain(card, b, steps, pool_size, bb_scale):
     assert not got[2][:, 12:16].any()
     if bb_scale < 1.0 and b > 1:
         assert want[2][:, 10].sum() > 2 * b
+
+
+@pytest.mark.parametrize("b,steps", [(1, 32), (63, 32), (65, 32), (100, 32), (1000, 32), (100, 1)])
+def test_kernel_at_the_tile_edges(card, b, steps):
+    """B1 at sizes that cut its 64-env tile and its two 32-env groups (a
+    lone env, 63, 65, 100, 1000; 63 and 65 take the critic pass's 4-byte
+    copies) under the tight box with a 2-deep pool, so resets and pool
+    wrap-around happen, and for a single step: held to the plain version as
+    chip_smoke.py's kernel_vs_plain holds it (`compare`: every output, the
+    value row among them, within atol = rtol = 1e-4 on the envs whose done
+    histories agree), every env's done history equal up to B = 100, and a
+    relaunch gives the same bits."""
+    from chip_smoke import compare
+
+    cfg, (s0, noise, pool, wT) = _inputs(card, b, steps, 2, 0.15)
+    before = rf.fused_rollout.launches
+    got = rf.fused_rollout(s0, noise, pool, wT, cfg, 0.1)
+    again = rf.fused_rollout(s0, noise, pool, wT, cfg, 0.1)
+    torch.cuda.synchronize()
+    assert rf.fused_rollout.launches == before + 2
+    want = rf.rollout_plain(s0, noise, pool, wT, rf._scalars(cfg), 0.1)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    res = compare(got, want, atol=1e-4, rtol=1e-4)
+    if b <= 100:
+        assert res["envs_compared"] == b
+    if steps > 1 and b >= 63:
+        assert want[2][:, 10].sum() > 2 * b, "reset path not exercised"
+        assert want[0][rf._SLOT].max() > 2, "pool wrap-around not exercised"
 
 
 def test_kernel_refuses_what_it_does_not_take(card):
@@ -472,6 +506,24 @@ def test_render_kernel_matches_plain(card, b):
                                atol=1e-4, rtol=0)
 
 
+@pytest.mark.parametrize("height,width,b", [(50, 60, 5), (43, 62, 3), (84, 84, 129)])
+def test_render_kernel_across_its_bands(card, height, width, b):
+    """B5 where its 21-row bands do not divide the image (50 = 21 + 21 + 8,
+    43 = 21 + 21 + 1 rows), at a width that is not a multiple of 4 (62:
+    the scalar stores), and at the landing camera with a batch past the
+    eval's: within atol 1e-4 of the plain version, the same bits on a
+    relaunch."""
+    cam = CameraConfig(width=width, height=height)
+    quad, marker, bright = _poses(card, b, seed=height + width)
+    got = rk.render_nadir_batch(quad, marker, cam=cam, brightness=bright)
+    again = rk.render_nadir_batch(quad, marker, cam=cam, brightness=bright)
+    torch.cuda.synchronize()
+    want = rk.render_nadir_batch_plain(quad, marker, cam=cam, brightness=bright)
+    assert got.shape == (b, 3, height, width)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    assert torch.equal(got, again)
+
+
 def test_render_kernel_refuses_what_it_does_not_take(card):
     quad, marker, bright = _poses(card, 8)
     with pytest.raises(ValueError):
@@ -484,6 +536,8 @@ def test_render_kernel_refuses_what_it_does_not_take(card):
         rk.render_nadir_batch(quad, marker[:4])
     with pytest.raises(ValueError):
         rk.render_nadir_batch(torch.zeros(8, 13, device=card)[:, 0:5:2], marker)
+    with pytest.raises(ValueError):
+        rk.render_nadir_batch(quad, marker, cam=CameraConfig(width=300))  # wider than its terms
 
 
 def test_landing_decisions_render_through_the_kernel(card):
