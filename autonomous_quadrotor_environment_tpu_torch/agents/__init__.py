@@ -7,6 +7,7 @@ from .ppo import (
     Rollout,
     evaluate,
     make_eval_fn,
+    make_forensic_eval_fn,
     make_train_loop,
     make_train_step,
     ppo_init,
@@ -28,6 +29,7 @@ __all__ = [
     "evaluate",
     "gae_advantages",
     "make_eval_fn",
+    "make_forensic_eval_fn",
     "make_train_loop",
     "make_train_step",
     "ppo_init",

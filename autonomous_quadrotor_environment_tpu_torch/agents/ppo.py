@@ -29,11 +29,14 @@ Differences of form from the JAX package:
   each piece also takes its randomness as an argument
   (`train_step_from_inputs`, `rowmajor_step_from_inputs`, ``perms``),
   which the parity tests use.
-* Configurations still to be ported (randomization, bf16 products) are
-  refused with the ROADMAP item that will port them, and on the card so
-  are shapes that the JAX package sends to a kernel the port's kernels do
-  not take yet (hidden widths other than 128, B2 tiles that are not a
-  multiple of 32).
+* Domain randomization runs on the row-major branch, as in the JAX
+  package: the rollout kernel refuses it (`rollout_fused.supports`), so a
+  robust config rolls out through `rollout_batch`, whose fresh domains and
+  gust draws are injectable too, and updates through autograd, B3 or B4.
+* bf16 products are refused with the ROADMAP item that will port them, and
+  on the card so are shapes that the JAX package sends to a kernel the
+  port's kernels do not take yet (hidden widths other than 128, B2 tiles
+  that are not a multiple of 32).
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..config import EnvConfig, PPOConfig, TrainConfig
+from ..core.randomization import DomainDraws
 from ..device import resolve_device
 from ..envs import hover
 from ..ops import ppo_fused as pfr
@@ -145,6 +149,9 @@ def rollout_batch(
     reset_pool: int = 0,
     noise: Optional[torch.Tensor] = None,
     fresh_x0: Optional[torch.Tensor] = None,
+    fresh_dom: Optional[DomainDraws] = None,
+    fresh_gust: Optional[torch.Tensor] = None,
+    gust_eps: Optional[torch.Tensor] = None,
 ) -> tuple[hover.EnvState, Rollout, torch.Tensor]:
     """Collect ``steps`` transitions from every env of the batch (JAX
     ppo.py:129-217): the policy acts on the env's window before the step,
@@ -160,10 +167,15 @@ def rollout_batch(
     action noise eps (T, B, 4) ~ N(0, 1), then the fresh episodes, as
     initial physical states ``fresh_x0`` ((T, B, 13) without a pool,
     (P, B, 13) with one) that `hover.reset` warms up (it draws a velocity
-    task's targets from ``gen``). All fresh episodes are reset in one
-    batch before the first step: each is an independent draw from the reset
-    distribution, so this equals resetting them step by step, and the step
-    loop selects with `torch.where` and never waits on the host.
+    task's targets from ``gen``); under randomization also their domains'
+    draws ``fresh_dom`` (a `DomainDraws` over the T x B or P x B fresh
+    episodes, step or pool major) and
+    their warmup steps' gust draws ``fresh_gust`` (warmup, T | P, B, 3),
+    then every step's gust draw ``gust_eps`` (T, B, 3). All fresh episodes
+    are reset in one batch before the first step: each is an independent
+    draw from the reset distribution, so this equals resetting them step by
+    step, and the step loop selects with `torch.where` and never waits on
+    the host.
 
     Returns ``(new_env_states, rollout, bootstrap)``, the rollout
     time-major (T, B, ...), bootstrap the critic's value of the final
@@ -173,11 +185,15 @@ def rollout_batch(
     if noise is None:
         noise = torch.randn(steps, b, 4, generator=gen, device=dev)
     n_fresh = reset_pool if reset_pool > 0 else steps
-    if fresh_x0 is None:
-        fresh = hover.reset(gen, env_cfg, n=n_fresh * b, dtype=env_states.x.dtype)
-    else:
-        fresh = hover.reset(gen, env_cfg, det_state=fresh_x0.reshape(n_fresh * b, 13),
-                            dtype=env_states.x.dtype)
+    fresh = hover.reset(
+        gen, env_cfg, n=n_fresh * b,
+        det_state=None if fresh_x0 is None else fresh_x0.reshape(n_fresh * b, 13),
+        dtype=env_states.x.dtype,
+        dom_draws=None if fresh_dom is None else fresh_dom.reshape(n_fresh * b),
+        warmup_gust=None if fresh_gust is None else fresh_gust.reshape(-1, n_fresh * b, 3),
+    )
+    if env_cfg.randomization.enabled and gust_eps is None:
+        gust_eps = torch.randn(steps, b, 3, generator=gen, device=dev)
     env_idx = torch.arange(b, device=dev)
     slot = torch.zeros(b, dtype=torch.long, device=dev)
     states, rows = env_states, []
@@ -187,15 +203,17 @@ def rollout_batch(
         dist = DiagGaussian(mean, log_std)
         action = mean + dist.std * noise[t]
         logprob = dist.log_prob(action)
+        eps_t = None if gust_eps is None else gust_eps[t]
         if reset_pool > 0:
-            stepped, out = hover.step(states, action, env_cfg)
+            stepped, out = hover.step(states, action, env_cfg, gust_eps=eps_t)
             states = hover.where_done(
                 out.done, hover.take_envs(fresh, (slot % reset_pool) * b + env_idx), stepped
             )
             slot = slot + out.done.long()
         else:
             states, out = hover.step_autoreset(
-                states, action, env_cfg, fresh=hover.take_envs(fresh, slice(t * b, (t + 1) * b))
+                states, action, env_cfg, fresh=hover.take_envs(fresh, slice(t * b, (t + 1) * b)),
+                gust_eps=eps_t,
             )
         rows.append((obs, action, logprob, value, out.reward, out.done, out.solved))
     _, bootstrap, _ = model(states.hist)
@@ -594,6 +612,9 @@ def rowmajor_step_from_inputs(
     noise: Optional[torch.Tensor] = None,
     pool: Optional[torch.Tensor] = None,
     fresh_x0: Optional[torch.Tensor] = None,
+    fresh_dom: Optional[DomainDraws] = None,
+    fresh_gust: Optional[torch.Tensor] = None,
+    gust_eps: Optional[torch.Tensor] = None,
     perms: Optional[torch.Tensor] = None,
 ) -> tuple[hover.EnvState, dict]:
     """One train step of the row-major branch (JAX ppo.py:649-663): the
@@ -601,8 +622,9 @@ def rowmajor_step_from_inputs(
     JAX `use_fused_rollout` gate holds and through `rollout_batch`
     otherwise, then `ppo_update`. Each draw comes from ``gen`` unless given:
     the kernel's ``noise`` (T, 4, B) and packed ``pool`` (P, ROWS, B)
-    (`fused_inputs`), or `rollout_batch`'s ``noise`` (T, B, 4) and
-    ``fresh_x0``; and the update's ``perms``. Returns the new env states
+    (`fused_inputs`), or `rollout_batch`'s ``noise`` (T, B, 4),
+    ``fresh_x0`` and under randomization ``fresh_dom``, ``fresh_gust`` and
+    ``gust_eps``; and the update's ``perms``. Returns the new env states
     and the step's metrics (0-dim tensors)."""
     if uses_fused_rollout(env_cfg, ppo_cfg, train_cfg):
         if noise is None:
@@ -615,7 +637,8 @@ def rowmajor_step_from_inputs(
     else:
         new_states, roll, bootstrap = rollout_batch(
             model, env_states, gen, env_cfg, train_cfg.rollout_steps, train_cfg.reset_pool,
-            noise=noise, fresh_x0=fresh_x0,
+            noise=noise, fresh_x0=fresh_x0, fresh_dom=fresh_dom, fresh_gust=fresh_gust,
+            gust_eps=gust_eps,
         )
     metrics = ppo_update(model, opt, roll, bootstrap, gen, ppo_cfg, perms)
     return new_states, _step_metrics(metrics, roll.rewards, roll.dones, roll.solved)
@@ -624,9 +647,11 @@ def rowmajor_step_from_inputs(
 def train_branch(model: ActorCritic, opt: torch.optim.Optimizer, env_cfg: EnvConfig,
                  ppo_cfg: PPOConfig, train_cfg: TrainConfig) -> str:
     """The branch the JAX package's `make_train_step` takes for these
-    configs, "fused_t" or "rowmajor", after its consistency guards. Refuses
-    what is not ported yet: randomization (ROADMAP A12), bf16 products in a
-    kernel, and, for a model on the card, a shape that the JAX package sends
+    configs, "fused_t" or "rowmajor", after its consistency guards. A
+    randomized env takes the row-major branch, since the rollout kernel
+    refuses it (`uses_fused_rollout`), as in the JAX package. Refuses what
+    is not ported yet: bf16 products in a kernel, and, for a model on the
+    card, a shape that the JAX package sends
     to a kernel the port's kernels do not take (hidden widths other than
     128; obs widths other than 75, that is hist_t other than 5; B2 tiles
     that are not a multiple of 32). The CPU runs every shape
@@ -642,8 +667,6 @@ def train_branch(model: ActorCritic, opt: torch.optim.Optimizer, env_cfg: EnvCon
             raise ValueError(
                 f"model.learn_std={model.learn_std} != ppo_cfg.learn_std={ppo_cfg.learn_std}"
             )
-    if env_cfg.randomization.enabled:
-        raise NotImplementedError("domain randomization is not ported yet (ROADMAP A12)")
     steps, b = train_cfg.rollout_steps, train_cfg.num_envs
     fused_rollout = uses_fused_rollout(env_cfg, ppo_cfg, train_cfg)
     tile_t = update_t_tile(ppo_cfg, steps, b)
@@ -746,60 +769,115 @@ def make_train_loop(
 # ---------------------------------------------------------------------------
 
 
+@torch.no_grad()
+def _fly(model: ActorCritic, env_cfg: EnvConfig, max_steps: int, states: hover.EnvState,
+         gen: Optional[torch.Generator], gust_eps: Optional[torch.Tensor]) -> dict:
+    """Fly every env of ``states`` with the actor mean through `hover.step`
+    for up to ``max_steps`` steps and return per-episode tensors: the
+    records of `make_forensic_eval_fn`, of which `make_eval_fn` reports the
+    means. Each step's gust draw is ``gust_eps[i]`` (max_steps, B, 3) or
+    drawn from ``gen``. The loop stops early once every episode has
+    finished, which changes nothing: finished episodes add nothing."""
+    settle_steps = max_steps // 5
+    b = states.x.shape[0]
+    dev = states.x.device
+    finished = torch.zeros(b, dtype=torch.bool, device=dev)
+    solved = torch.zeros(b, dtype=torch.bool, device=dev)
+    reward_sum = torch.zeros(b, dtype=torch.float32, device=dev)
+    length = torch.zeros(b, dtype=torch.int32, device=dev)
+    v2_sum = torch.zeros(b, dtype=torch.float32, device=dev)
+    v2_n = torch.zeros(b, dtype=torch.float32, device=dev)
+    sat_steps = torch.zeros(b, dtype=torch.float32, device=dev)
+    peak_gust = torch.zeros(b, dtype=torch.float32, device=dev)
+    dom0 = states.dom
+    for i in range(max_steps):
+        if i % 64 == 63 and bool(finished.all()):
+            break
+        mean = model.actor_mean(states.hist)
+        active = ~finished
+        # The actor at its authority limit: the tanh head and the motor
+        # model both saturate at |a| = 1.
+        sat_steps = sat_steps + (torch.any(mean.abs() > 0.99, dim=-1) & active).float()
+        states, out = hover.step(states, mean, env_cfg,
+                                 gust_eps=None if gust_eps is None else gust_eps[i], gen=gen)
+        peak_gust = torch.maximum(
+            peak_gust, torch.linalg.vector_norm(states.dom.gust_next, dim=-1) * active)
+        reward_sum = reward_sum + out.reward * active
+        solved = solved | (out.solved & active)
+        length = length + active.to(torch.int32)
+        late = active & (i >= settle_steps)
+        vel2 = ((states.x[:, 1:6:2] - states.vel_target) ** 2).sum(-1)
+        v2_sum = v2_sum + vel2 * late
+        v2_n = v2_n + late.float()
+        finished = finished | out.done
+    rms_vel = torch.sqrt(v2_sum / torch.clamp(v2_n, min=1.0))
+    # The env's step counter starts at `warmup` after reset, so its timeout
+    # fires after max_steps - warmup active steps (the JAX package's
+    # round-5 survival cut).
+    survived = solved | (length >= max_steps - env_cfg.warmup)
+    station = survived & (rms_vel < 0.5)
+    return {
+        "severity": dom0.gust_scale,
+        "mass_factor": dom0.mass_factor,
+        "kf_mean": dom0.kf_degrade.mean(-1),
+        "peak_gust": peak_gust,
+        "solved": solved,
+        "survived": survived,
+        "station": station,
+        "rms_vel": rms_vel,
+        "length": length,
+        "reward": reward_sum,
+        "sat_frac": sat_steps / torch.clamp(length.float(), min=1.0),
+    }
+
+
 def make_eval_fn(model: ActorCritic, env_cfg: EnvConfig, episodes: int,
                  max_steps: Optional[int] = None):
     """Deterministic evaluation: `episodes` parallel envs flown with the
     actor mean through `hover.step` (reference `evaluate` ppo.py:272-295),
     reporting mean reward, length, solved, survived, late RMS velocity and
-    station-keeping fractions.
+    station-keeping fractions (survive AND hold the post-settle RMS
+    velocity under 0.5 m/s: the robust criterion).
 
-    ``eval_fn(gen=None, env_states=None)`` resets ``episodes`` envs from
-    ``gen`` unless ``env_states`` are given. The loop stops early once every
-    episode has finished, which changes nothing: finished episodes add
-    nothing."""
+    ``eval_fn(gen=None, env_states=None, gust_eps=None)`` resets
+    ``episodes`` envs from ``gen`` unless ``env_states`` are given; under
+    randomization each step's gust draw is ``gust_eps[i]`` (max_steps, B,
+    3) or drawn from ``gen``."""
     max_steps = max_steps or env_cfg.max_steps
-    settle_steps = max_steps // 5
 
-    @torch.no_grad()
     def eval_fn(gen: Optional[torch.Generator] = None,
-                env_states: Optional[hover.EnvState] = None) -> dict:
+                env_states: Optional[hover.EnvState] = None,
+                gust_eps: Optional[torch.Tensor] = None) -> dict:
         states = env_states if env_states is not None else hover.reset(gen, env_cfg, n=episodes)
-        b = states.x.shape[0]
-        dev = states.x.device
-        finished = torch.zeros(b, dtype=torch.bool, device=dev)
-        solved = torch.zeros(b, dtype=torch.bool, device=dev)
-        reward_sum = torch.zeros(b, dtype=torch.float32, device=dev)
-        length = torch.zeros(b, dtype=torch.int32, device=dev)
-        v2_sum = torch.zeros(b, dtype=torch.float32, device=dev)
-        v2_n = torch.zeros(b, dtype=torch.float32, device=dev)
-        for i in range(max_steps):
-            if i % 64 == 63 and bool(finished.all()):
-                break
-            mean = model.actor_mean(states.hist)
-            states, out = hover.step(states, mean, env_cfg)
-            active = ~finished
-            reward_sum = reward_sum + out.reward * active
-            solved = solved | (out.solved & active)
-            length = length + active.to(torch.int32)
-            late = active & (i >= settle_steps)
-            vel2 = ((states.x[:, 1:6:2] - states.vel_target) ** 2).sum(-1)
-            v2_sum = v2_sum + vel2 * late
-            v2_n = v2_n + late.float()
-            finished = finished | out.done
-        rms_vel = torch.sqrt(v2_sum / torch.clamp(v2_n, min=1.0))
-        # The env's step counter starts at `warmup` after reset, so its
-        # timeout fires after max_steps - warmup active steps (the JAX
-        # package's round-5 survival cut).
-        survived = solved | (length >= max_steps - env_cfg.warmup)
-        station = survived & (rms_vel < 0.5)
+        rec = _fly(model, env_cfg, max_steps, states, gen, gust_eps)
         return {
-            "eval_reward": reward_sum.mean(),
-            "eval_length": length.float().mean(),
-            "eval_solved": solved.float().mean(),
-            "eval_survived": survived.float().mean(),
-            "eval_rms_vel_late": rms_vel.mean(),
-            "eval_station_keeping": station.float().mean(),
+            "eval_reward": rec["reward"].mean(),
+            "eval_length": rec["length"].float().mean(),
+            "eval_solved": rec["solved"].float().mean(),
+            "eval_survived": rec["survived"].float().mean(),
+            "eval_rms_vel_late": rec["rms_vel"].mean(),
+            "eval_station_keeping": rec["station"].float().mean(),
         }
+
+    return eval_fn
+
+
+def make_forensic_eval_fn(model: ActorCritic, env_cfg: EnvConfig, episodes: int,
+                          max_steps: Optional[int] = None):
+    """Per-episode diagnostic evaluation (JAX ppo.py:789-871): the protocol
+    of `make_eval_fn`, from the same draws in the same order, but one record
+    per episode: its severity and domain perturbations as reset drew them,
+    the peak gust target during the episode, which criteria passed (strict
+    solve, survival, station-keeping), post-settle RMS velocity, length,
+    reward, and the fraction of its steps with any motor command |a| >
+    0.99. Takes the arguments of ``eval_fn``."""
+    max_steps = max_steps or env_cfg.max_steps
+
+    def eval_fn(gen: Optional[torch.Generator] = None,
+                env_states: Optional[hover.EnvState] = None,
+                gust_eps: Optional[torch.Tensor] = None) -> dict:
+        states = env_states if env_states is not None else hover.reset(gen, env_cfg, n=episodes)
+        return _fly(model, env_cfg, max_steps, states, gen, gust_eps)
 
     return eval_fn
 

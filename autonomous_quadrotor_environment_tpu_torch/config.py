@@ -55,19 +55,34 @@ class PhysicsConfig:
 
 @dataclasses.dataclass(frozen=True)
 class RandomizationConfig:
-    """Magnitudes of per-episode physics perturbations and wind gusts.
-
-    Only ``enabled=False`` runs in the port so far; the fields are kept so
-    the config compares equal to the JAX package's."""
+    """Magnitudes of per-episode physics perturbations and wind gusts
+    (reference quadrotor_env.py:84-109 `robust_control`)."""
 
     enabled: bool = False
-    d_kf: float = 0.1
-    d_m: float = 0.3
-    d_ir: float = 0.1
-    d_j: float = 0.1
-    gust_std: tuple = (5.0, 5.0, 2.0)
-    gust_period: int = 500
+    d_kf: float = 0.1       # motor-constant degradation, U[0, d_kf) per motor
+    d_m: float = 0.3        # mass factor, N(0, d_m)
+    d_ir: float = 0.1       # rotor-inertia factor, U[0, d_ir) per motor
+    d_j: float = 0.1        # inertia-diagonal factor, N(0, d_j) per axis
+    gust_std: tuple = (5.0, 5.0, 2.0)  # wind gust std per axis [m/s]
+    gust_period: int = 500  # integration steps between gust resamples
+    # Per-episode severity: each reset draws s ~ U[0, 1] and scales every
+    # magnitude (mid-episode gusts too, through DomainParams.gust_scale).
+    # With `scaled` the stage severity becomes the upper bound.
     severity_sample: bool = False
+
+    def scaled(self, severity: float) -> "RandomizationConfig":
+        """Curriculum stage: every perturbation magnitude scaled by
+        ``severity`` in [0, 1] (0 calm, 1 the reference's full
+        robust_control); severity 0 turns randomization off."""
+        return dataclasses.replace(
+            self,
+            enabled=self.enabled and severity > 0.0,
+            d_kf=self.d_kf * severity,
+            d_m=self.d_m * severity,
+            d_ir=self.d_ir * severity,
+            d_j=self.d_j * severity,
+            gust_std=tuple(g * severity for g in self.gust_std),
+        )
 
 
 @dataclasses.dataclass(frozen=True)

@@ -9,8 +9,9 @@ functions on a batch of envs,
 
 with every per-env quantity a tensor whose first axis is the env. Randomness
 comes from an explicit ``torch.Generator``; the JAX package's per-env PRNG
-keys have no counterpart. Domain randomization is not ported yet: a config
-that enables it is refused.
+keys have no counterpart, so every draw can also be given as a tensor: the
+initial states, the randomized domains (`DomainDraws`) and each step's gust
+draw (B, 3).
 
 State layout (B, 13): [x, vx, y, vy, z, vz, q0, q1, q2, q3, wx, wy, wz]
 """
@@ -25,7 +26,13 @@ import torch
 from ..config import BB_POS, BB_VEL, EnvConfig
 from ..core.dynamics import physics_step
 from ..core.quaternion import euler_quat, quat_euler, quat_normalize
-from ..core.randomization import DomainParams, zeros_domain
+from ..core.randomization import (
+    DomainDraws,
+    DomainParams,
+    sample_domain,
+    wind_update,
+    zeros_domain,
+)
 from .featurizer import init_hist, push_hist
 from .rewards import hover_reward
 
@@ -59,11 +66,6 @@ class StepOut(NamedTuple):
     reward: torch.Tensor      # (B,)
     done: torch.Tensor        # (B,) bool
     solved: torch.Tensor      # (B,) bool
-
-
-def _require_no_randomization(cfg: EnvConfig) -> None:
-    if cfg.randomization.enabled:
-        raise NotImplementedError("domain randomization is not ported yet")
 
 
 def zero_control(cfg: EnvConfig, dtype=torch.float32, device=None) -> torch.Tensor:
@@ -102,7 +104,8 @@ def random_initial_state(gen: torch.Generator, n: int, dtype=torch.float32) -> t
     return torch.cat([interleaved, q, omega], dim=-1)
 
 
-def _raw_state(x: torch.Tensor, t: int, vel_target: Optional[torch.Tensor]) -> EnvState:
+def _raw_state(x: torch.Tensor, t: int, vel_target: Optional[torch.Tensor],
+               dom: Optional[DomainParams] = None) -> EnvState:
     n, dtype, device = x.shape[0], x.dtype, x.device
     ang = quat_euler(quat_normalize(x[:, 6:10]))
     if vel_target is None:
@@ -123,30 +126,38 @@ def _raw_state(x: torch.Tensor, t: int, vel_target: Optional[torch.Tensor]) -> E
         hist=init_hist(n, t, dtype, device),
         last_action=torch.zeros(n, 4, dtype=dtype, device=device),
         vel_target=vel_target.to(dtype),
-        dom=zeros_domain(n, dtype, device),
+        dom=zeros_domain(n, dtype, device) if dom is None else dom,
     )
 
 
-def step(state: EnvState, action: torch.Tensor, cfg: EnvConfig) -> tuple[EnvState, StepOut]:
-    """One environment step for every env of the batch."""
-    _require_no_randomization(cfg)
+def step(state: EnvState, action: torch.Tensor, cfg: EnvConfig,
+         gust_eps: Optional[torch.Tensor] = None,
+         gen: Optional[torch.Generator] = None) -> tuple[EnvState, StepOut]:
+    """One environment step for every env of the batch. Under randomization
+    the wind comes from `wind_update` with the step's gust draw
+    ``gust_eps`` (B, 3), drawn from ``gen`` when not given."""
     x = state.x
     dtype, device = x.dtype, x.device
     phys = cfg.physics
     action = action.to(dtype)
 
     i = state.i + 1
-    wind = torch.zeros_like(x[:, 0:3])
+    if cfg.randomization.enabled and gust_eps is None:
+        if gen is None:
+            raise ValueError("a randomized step needs gust_eps or a generator to draw it from")
+        gust_eps = torch.randn(x.shape[0], 3, generator=gen, dtype=dtype, device=gen.device)
+    dom, wind = wind_update(state.dom, gust_eps, i, cfg.randomization)
     x_new, aux = physics_step(
         x,
         action,
         wind,
         phys,
-        state.dom,
+        dom,
         dt=cfg.dt,
         substeps=cfg.rk_substeps,
         direct_control=cfg.direct_control,
         clipped=cfg.clipped,
+        randomize=cfg.randomization.enabled,
         compute_accel_aux=False,
     )
 
@@ -204,7 +215,7 @@ def step(state: EnvState, action: torch.Tensor, cfg: EnvConfig) -> tuple[EnvStat
         hist=hist,
         last_action=reward_action,
         vel_target=state.vel_target,
-        dom=state.dom,
+        dom=dom,
     )
     out = StepOut(
         obs=hist, quat_state=quat_state, reward=rew.reward, done=rew.done, solved=rew.solved
@@ -218,11 +229,16 @@ def reset(
     n: Optional[int] = None,
     det_state: Optional[torch.Tensor] = None,
     dtype=torch.float32,
+    dom_draws: Optional[DomainDraws] = None,
+    warmup_gust: Optional[torch.Tensor] = None,
 ) -> EnvState:
     """Start ``n`` new episodes (or one per row of ``det_state`` (B, 13)) and
-    run the warmup steps with the neutral action. ``gen`` draws the initial
-    states and, for the velocity task, the targets."""
-    _require_no_randomization(cfg)
+    run the warmup steps with the neutral action. ``gen`` draws, in this
+    order and each only where it is not given: the initial states, a
+    velocity task's targets, and under randomization the domains
+    (``dom_draws``, `sample_domain`) and the warmup steps' gust draws
+    ``warmup_gust`` (warmup, B, 3). The first warmup step (i = 1) resamples
+    the gust, so a fresh episode's wind depends on its warmup draw."""
     if det_state is None:
         x0 = random_initial_state(gen, n, dtype)
     else:
@@ -233,12 +249,19 @@ def reset(
         vmax = torch.tensor(cfg.vel_target_max, dtype=dtype, device=x0.device)
         u = torch.rand(n, 3, generator=gen, dtype=dtype, device=x0.device)
         vel_target = (u * 2.0 - 1.0) * vmax
-    state = _raw_state(x0, cfg.hist_t, vel_target)
+    dom = sample_domain(cfg.randomization, n, gen, dom_draws, dtype, x0.device)
+    state = _raw_state(x0, cfg.hist_t, vel_target, dom)
 
     if cfg.warmup > 0:
+        if cfg.randomization.enabled and warmup_gust is None:
+            if gen is None:
+                raise ValueError("a randomized reset needs warmup_gust or a generator")
+            warmup_gust = torch.randn(cfg.warmup, n, 3, generator=gen, dtype=dtype,
+                                      device=gen.device)
         zc = zero_control(cfg, dtype, x0.device).expand(n, 4)
-        for _ in range(cfg.warmup):
-            state, _out = step(state, zc, cfg)
+        for w in range(cfg.warmup):
+            state, _out = step(state, zc, cfg,
+                               gust_eps=None if warmup_gust is None else warmup_gust[w])
         # Warmup must not leave terminal flags set for the agent's episode.
         falses = torch.zeros_like(state.done)
         state = state.replace(done=falses, solved=falses)
@@ -275,17 +298,20 @@ def step_autoreset(
     cfg: EnvConfig,
     fresh: Optional[EnvState] = None,
     gen: Optional[torch.Generator] = None,
+    gust_eps: Optional[torch.Tensor] = None,
 ) -> tuple[EnvState, StepOut]:
     """Step; where the episode ends, start a fresh one at once (JAX
     hover.py:283). The returned `StepOut` reports the terminal transition
     (reward and done of the finished episode); the carried state is the new
     episode's.
 
-    ``fresh`` is a batch of B freshly reset states (`reset` with warmup);
-    without it one is drawn from ``gen``. As `jax.vmap` does, every env gets
-    a fresh state and a `torch.where` keeps it where done, so the step never
-    waits on the host."""
-    stepped, out = step(state, action, cfg)
+    ``fresh`` is a batch of B freshly reset states (`reset` with warmup,
+    their randomized domains too); without it one is drawn from ``gen``
+    after the step's gust draw (``gust_eps``, drawn from ``gen`` when not
+    given). As `jax.vmap` does, every env gets a fresh state and a
+    `torch.where` keeps it where done, so the step never waits on the
+    host."""
+    stepped, out = step(state, action, cfg, gust_eps=gust_eps, gen=gen)
     if fresh is None:
         fresh = reset(gen, cfg, n=state.x.shape[0], dtype=state.x.dtype)
     return where_done(out.done, fresh, stepped), out

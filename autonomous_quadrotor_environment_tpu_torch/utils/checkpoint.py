@@ -1,16 +1,18 @@
-"""Read flax msgpack checkpoints without flax or msgpack.
+"""Read and write flax msgpack checkpoints without flax or msgpack.
 
-Counterpart of `utils/checkpoint.py:load_params` in the JAX package. The
-checkpoint files are flax `serialization.to_bytes` output: a msgpack map of
-maps whose leaves are msgpack ext values of type 1, each holding a msgpack
-``(shape, dtype name, raw bytes)`` triple (flax
-`serialization._ndarray_to_bytes`). This module decodes exactly that subset
-of msgpack in pure Python so the port loads the shipped fixtures on a
-machine that has numpy and nothing of the JAX stack.
+Counterpart of `utils/checkpoint.py` in the JAX package. The checkpoint
+files are flax `serialization.to_bytes` output: a msgpack map of maps whose
+leaves are msgpack ext values of type 1, each holding a msgpack ``(shape,
+dtype name, raw bytes)`` triple (flax `serialization._ndarray_to_bytes`).
+This module decodes and encodes exactly that subset of msgpack in pure
+Python, so the port reads the shipped fixtures and writes checkpoints that
+the JAX package reads, on a machine that has numpy and nothing of the JAX
+stack.
 """
 
 from __future__ import annotations
 
+import os
 import struct
 
 import numpy as np
@@ -136,3 +138,111 @@ def load_params(path: str) -> dict:
         return node
 
     return up(tree)
+
+
+def _pack_len(out: list, n: int, fix: int, fix_max: int, wide: tuple) -> None:
+    """A msgpack length header: the fix form below ``fix_max``, else the
+    first of ``wide`` ((code, struct format, limit), ...) that holds n."""
+    if n < fix_max:
+        out.append(bytes([fix | n]))
+        return
+    for code, fmt, limit in wide:
+        if n < limit:
+            out.append(bytes([code]) + struct.pack(fmt, n))
+            return
+    raise ValueError(f"msgpack length {n} too large")
+
+
+_WIDE = ((">B", 1 << 8), (">H", 1 << 16), (">I", 1 << 32))
+
+
+def _pack(out: list, v) -> None:
+    """msgpack's encoding of ``v`` as the Python msgpack package writes it
+    with ``use_bin_type=True``: minimal integer and length forms."""
+    if isinstance(v, dict):
+        _pack_len(out, len(v), 0x80, 16, ((0xDE, ">H", 1 << 16), (0xDF, ">I", 1 << 32)))
+        for k, x in v.items():
+            _pack(out, k)
+            _pack(out, x)
+    elif isinstance(v, (list, tuple)):
+        _pack_len(out, len(v), 0x90, 16, ((0xDC, ">H", 1 << 16), (0xDD, ">I", 1 << 32)))
+        for x in v:
+            _pack(out, x)
+    elif isinstance(v, str):
+        b = v.encode("utf-8")
+        _pack_len(out, len(b), 0xA0, 32, tuple((c,) + w for c, w in zip((0xD9, 0xDA, 0xDB), _WIDE)))
+        out.append(b)
+    elif isinstance(v, bytes):
+        _pack_len(out, len(v), 0, 0, tuple((c,) + w for c, w in zip((0xC4, 0xC5, 0xC6), _WIDE)))
+        out.append(v)
+    elif isinstance(v, int) and 0 <= v:
+        if v < 0x80:
+            out.append(bytes([v]))
+        else:
+            for code, fmt, limit in ((0xCC, ">B", 1 << 8), (0xCD, ">H", 1 << 16),
+                                     (0xCE, ">I", 1 << 32), (0xCF, ">Q", 1 << 64)):
+                if v < limit:
+                    out.append(bytes([code]) + struct.pack(fmt, v))
+                    break
+    else:
+        raise TypeError(f"cannot write {type(v).__name__} to a checkpoint")
+
+
+def _ndarray_ext(arr: np.ndarray) -> bytes:
+    """Mirror of flax `_msgpack_ext_pack` for an ndarray: ext type 1 around
+    the packed ``(shape, dtype name, C-order bytes)``."""
+    inner: list = []
+    _pack(inner, (tuple(int(d) for d in arr.shape), arr.dtype.name, arr.tobytes("C")))
+    payload = b"".join(inner)
+    n = len(payload)
+    fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if n in fixext:
+        head = bytes([fixext[n]])
+    else:
+        head = b""
+        for code, fmt, limit in zip((0xC7, 0xC8, 0xC9), *zip(*_WIDE)):
+            if n < limit:
+                head = bytes([code]) + struct.pack(fmt, n)
+                break
+    return head + struct.pack(">b", _EXT_NDARRAY) + payload
+
+
+def write_msgpack(tree) -> bytes:
+    """Encode nested dicts of numpy arrays as flax `serialization.to_bytes`
+    does, each map's keys in sorted order, as the JAX package's
+    ``save_params`` writes them after its `jax.device_get` (the inverse of
+    `read_msgpack`)."""
+    out: list = []
+
+    def walk(node):
+        if isinstance(node, dict):
+            _pack_len(out, len(node), 0x80, 16, ((0xDE, ">H", 1 << 16), (0xDF, ">I", 1 << 32)))
+            for k in sorted(node):
+                _pack(out, str(k))
+                walk(node[k])
+            return
+        out.append(_ndarray_ext(np.asarray(node)))
+
+    walk(tree)
+    return b"".join(out)
+
+
+def save_params(path: str, params, half: bool = False) -> None:
+    """Write a param tree (nested dicts of numpy arrays, as
+    `agents.networks.to_flax` gives it, or of tensors, copied to the host)
+    to ``path`` in the JAX package's checkpoint format, making the
+    directory. ``half=True`` stores float32 leaves as float16, as the
+    shipped fixtures are."""
+
+    def down(node):
+        if isinstance(node, dict):
+            return {k: down(v) for k, v in node.items()}
+        if hasattr(node, "detach"):
+            node = node.detach().cpu().numpy()
+        arr = np.asarray(node)
+        return arr.astype(np.float16) if half and arr.dtype == np.float32 else arr
+
+    data = write_msgpack(down(params))
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(data)

@@ -72,6 +72,26 @@ It imports nothing of JAX. Each phase prints one flushed JSON line:
 13. learn_rowmajor: the same from scratch with the rollout kernel and the
    Adam step inside B4 (1 B1 and 10 B4 launches an update), evaluated at
    update 400 and every 100 after, to the same bar.
+14. robust_vs_plain: B3 (full batch, tile 128) and B4 (from a warmed Adam
+   state) against their plain versions on the rows of one robust
+   `rollout_batch` at 1024 x 128 (randomized physics and wind, the seed-2
+   model), at grad_vs_plain's gates, bit-equal relaunches, times by CUDA
+   events.
+15. robust_train: 3 row-major train steps each on the robust env at the
+   trainer's defaults, with the autograd update, with fused_update (10 B3
+   launches a step) and with fused_adam too (10 B4 launches a step), every
+   launch counter set to 0 just before each step and read just after
+   (no B1, no B2: the rollout kernel refuses randomization).
+16. robust_eval: `apps.robust_eval.main` with the shipped nominal and robust
+   fixtures, 256 episodes, seed 0, with --forensic: the rates held within
+   3 sigma of the JAX package's own CPU eval (`ROBUST_REF`), the nominal
+   policy's windy solve rate at most 0.02, the forensic windy_full
+   records' mean station equal to the table's robust/windy rate, the
+   taxonomy's fractions summing to 1 plus the solved-but-not-station share
+   (those episodes sit in two of its classes).
+17. train_cli: `apps.train_control.main --robust --curriculum 0,1` for 4
+   updates at the trainer's defaults: its CSV, JSONL and checkpoints
+   written, the final checkpoint read back bit for bit.
 
 The landing phases need `autonomous_quadrotor_environment_tpu/fixtures/
 landing_policy.msgpack` in the checkout; without it the script stops at
@@ -104,10 +124,16 @@ from autonomous_quadrotor_environment_tpu_torch.agents.ppo import (
     fused_inputs,
     rollout_batch_fused,
 )
-from autonomous_quadrotor_environment_tpu_torch.config import EnvConfig, PPOConfig, TrainConfig
+from autonomous_quadrotor_environment_tpu_torch.config import (
+    EnvConfig,
+    PPOConfig,
+    RandomizationConfig,
+    TrainConfig,
+)
 from autonomous_quadrotor_environment_tpu_torch.envs import hover
 from autonomous_quadrotor_environment_tpu_torch.fixtures import (
     LANDING_POLICY,
+    ROBUST_CONTROLLER,
     SOLVED_CONTROLLER,
     load_landing_policy,
     load_solved_controller,
@@ -702,12 +728,14 @@ def trainer_configs():
             TrainConfig(num_envs=LEARN_B, rollout_steps=LEARN_T, network_size=128))
 
 
-def trainer_batch():
+def trainer_batch(env_cfg=None):
     """The rows B3 takes on the first step of `trainer_configs`' train step
-    from `ppo_init` at seed 2 (train_rowmajor (a)): `rollout_batch` with
-    per-step auto-reset, GAE, flattened row-major as `ppo_update` does it;
-    with the tile `update_plan` picks and every row block in order."""
-    env_cfg, pcfg, tcfg = trainer_configs()
+    from `ppo_init` at seed 2 (train_rowmajor (a); in ``env_cfg`` when
+    given): `rollout_batch` with per-step auto-reset, GAE, flattened
+    row-major as `ppo_update` does it; with the tile `update_plan` picks and
+    every row block in order."""
+    default_env, pcfg, tcfg = trainer_configs()
+    env_cfg = env_cfg or default_env
     model, _, state = ppo.ppo_init(2, env_cfg, pcfg, tcfg, device=DEVICE)
     _, roll, boot = ppo.rollout_batch(model, state.env_states, state.gen, env_cfg, LEARN_T)
     returns, advs = gae_advantages(roll.rewards, roll.values, roll.dones, boot,
@@ -1492,6 +1520,271 @@ def phase_land() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The robust controller (randomized physics and wind)
+# ---------------------------------------------------------------------------
+
+ROBUST_ENV = EnvConfig(n_steps=1000, randomization=RandomizationConfig(enabled=True))
+ROBUST_EPISODES = 256
+# The JAX package's own `make_eval_fn` of the shipped fixtures on the CPU:
+# 256 episodes, PRNGKey(0), EnvConfig(n_steps=1000), calm and windy
+# (RandomizationConfig(enabled=True)); `python scripts/robust_fixture_rate.py`
+# prints them. The card's generator is not jax.random, so the card's rates
+# are a second independent 256-episode draw of the same rate: each is held
+# within 3 sigma of the JAX value, sigma = sqrt(2 p (1 - p) / 256). At
+# p = 0 (nominal/windy eval_solved) that band is empty, and one solved
+# episode in 256 would fail it by chance; that rate is held to
+# NOMINAL_WINDY_SOLVED_MAX instead.
+ROBUST_REF = {
+    "robust/calm": {"eval_solved": 0.98046875, "eval_station_keeping": 0.9765625,
+                    "eval_survived": 0.98046875},
+    "robust/windy": {"eval_solved": 0.5703125, "eval_station_keeping": 0.9453125,
+                     "eval_survived": 0.96875},
+    "nominal/windy": {"eval_solved": 0.0, "eval_station_keeping": 0.53515625,
+                      "eval_survived": 0.88671875},
+}
+NOMINAL_WINDY_SOLVED_MAX = 0.02
+
+
+def robust_sigma(p: float, episodes: int = ROBUST_EPISODES) -> float:
+    """One sigma of the difference of two independent ``episodes``-episode
+    rates of true rate ``p``."""
+    return math.sqrt(2.0 * p * (1.0 - p) / episodes)
+
+
+def phase_robust_vs_plain() -> dict:
+    """B3 and B4 on the rows of one robust `rollout_batch` at the trainer's
+    1024 x 128 (`trainer_batch` in ROBUST_ENV): B3 on the full batch (tile
+    128, every block) against its plain version, B4 from a state warmed by
+    3 plain full-batch steps, both at grad_vs_plain's gates (loss and
+    metrics rtol 1e-4, each leaf and B4's params and moments within a
+    relative Frobenius error of 1e-4, bit-equal relaunches); then both
+    kernels' and plain versions' times by CUDA events."""
+    t0 = time.perf_counter()
+    model, obs, aux, tile, every = trainer_batch(ROBUST_ENV)
+    b3 = grad_compare(model, obs, aux, every, tile, pr.fused_ppo_grad, pr.ppo_grad_plain,
+                      "robust_vs_plain")
+    b4 = adam_compare(copy.deepcopy(model), obs, aux, every, tile, [every] * 3)
+    times = timed_rows(model, obs, aux, every, tile)
+    out = {
+        "phase": "robust_vs_plain", "seconds": time.perf_counter() - t0, "card": card(),
+        "B": LEARN_B, "T": LEARN_T, "rows": obs.shape[0], "tile": tile,
+        "b3": b3, "adam_warm": b4, "times": times,
+        "b3_max_abs_err": b3["max_abs_err"], "b4_max_abs_err": b4["max_abs_err"],
+    }
+    emit(out)
+    return out
+
+
+def phase_robust_train() -> dict:
+    """The robust trainer's row-major step at the trainer's defaults (1024 x
+    128, K=10, full batch) on ROBUST_ENV, 3 steps per update branch, each
+    with every launch counter set to 0 just before and read just after:
+    autograd (the CLI's default: no kernel), fused_update (10 B3 launches)
+    and fused_update + fused_adam (10 B4 launches); never B1 or B2. Warm ms
+    per step on the host clock with a sync."""
+    t0 = time.perf_counter()
+    tcfg = TrainConfig(num_envs=LEARN_B, rollout_steps=LEARN_T, network_size=128)
+    runs = {}
+    for name, flags, want in (
+        ("autograd", {}, launches_want()),
+        ("fused_update", dict(fused_update=True), launches_want(ppo_fused=10)),
+        ("fused_adam", dict(fused_update=True, fused_adam=True),
+         launches_want(ppo_fused_adam=10)),
+    ):
+        pcfg = PPOConfig(lr=LEARN_LR, k_epochs=10, **flags)
+        model, opt, state = ppo.ppo_init(5, ROBUST_ENV, pcfg, tcfg, device=DEVICE)
+        if not state.env_states.dom.mass_factor.abs().max().item() > 0:
+            raise AssertionError("the robust env batch has no randomized domains")
+        branch = ppo.train_branch(model, opt, ROBUST_ENV, pcfg, tcfg)
+        step = ppo.make_train_step(model, opt, ROBUST_ENV, pcfg, tcfg)
+        state, step_ms, launches, metrics, peak = counted_steps(step, state, model, 3, want)
+        runs[name] = {"branch": branch, "step_ms": step_ms,
+                      "warm_step_ms": sum(step_ms[1:]) / len(step_ms[1:]),
+                      "launches_per_step": launches, "metrics": metrics,
+                      "peak_memory_bytes": peak}
+    out = {"phase": "robust_train", "seconds": time.perf_counter() - t0, "card": card(),
+           "B": LEARN_B, "T": LEARN_T, "K": 10, "runs": runs}
+    emit(out)
+    return out
+
+
+def phase_robust_eval() -> dict:
+    """The robust cross-eval through its entry point, `apps.robust_eval.main`,
+    with both fixtures at 256 episodes, seed 0, and --forensic, every launch
+    counter set to 0 just before and read just after (the eval is plain
+    PyTorch: no kernel). Gates: robust/calm, robust/windy and nominal/windy
+    within 3 sigma of ROBUST_REF in eval_solved, eval_station_keeping and
+    eval_survived (where the band is not empty); nominal/windy eval_solved
+    <= 0.02; the forensic
+    windy_full records' mean station equal to the table's robust/windy
+    eval_station_keeping (the same seed and draws); each taxonomy's
+    fractions summing to 1 within 1e-3 (they are rounded to 4 places),
+    plus the share of episodes solved but not station-keeping, which the
+    taxonomy (the JAX package's own) counts in two classes."""
+    import tempfile
+
+    from autonomous_quadrotor_environment_tpu_torch.apps import robust_eval
+
+    t0 = time.perf_counter()
+    seconds = []
+
+    def timed(make):
+        def made(*args, **kwargs):
+            fn = make(*args, **kwargs)
+
+            def call(*a, **k):
+                sync()
+                t = time.perf_counter()
+                out = fn(*a, **k)
+                sync()
+                seconds.append(time.perf_counter() - t)
+                return out
+            return call
+        return made
+
+    make_eval, make_forensic = robust_eval.make_eval_fn, robust_eval.make_forensic_eval_fn
+    robust_eval.make_eval_fn = timed(make_eval)
+    robust_eval.make_forensic_eval_fn = timed(make_forensic)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "forensic.json")
+        argv = ["--nominal", SOLVED_CONTROLLER, "--robust", ROBUST_CONTROLLER,
+                "--episodes", str(ROBUST_EPISODES), "--seed", "0", "--forensic", path]
+        try:
+            zero_counters()
+            table = robust_eval.main(argv)
+            sync()
+            launches = read_counters()
+        finally:
+            robust_eval.make_eval_fn, robust_eval.make_forensic_eval_fn = make_eval, make_forensic
+        with open(path) as f:
+            forensic = json.load(f)
+    gates, bad = {}, []
+    for cell, ref in ROBUST_REF.items():
+        for k, want in ref.items():
+            got = table[cell][k]
+            band = 3.0 * robust_sigma(want)
+            gates[f"{cell}:{k}"] = {"card": got, "jax_cpu": want, "band": band}
+            if band > 0 and not abs(got - want) <= band:
+                bad.append(f"{cell} {k} {got} outside {want} +/- {band:.4f}")
+    nominal_windy = table["nominal/windy"]["eval_solved"]
+    gates["nominal/windy:eval_solved"]["max"] = NOMINAL_WINDY_SOLVED_MAX
+    if not nominal_windy <= NOMINAL_WINDY_SOLVED_MAX:
+        bad.append(f"nominal/windy eval_solved {nominal_windy} > {NOMINAL_WINDY_SOLVED_MAX}")
+    station = forensic["windy_full"]["records"]["station"]
+    forensic_station = sum(station) / len(station)
+    if forensic_station != table["robust/windy"]["eval_station_keeping"]:
+        bad.append(f"forensic windy_full station {forensic_station} != the table's "
+                   f"{table['robust/windy']['eval_station_keeping']}")
+    frac_sums = {}
+    for env_name in ("windy_full", "windy_sampled"):
+        tax, rec = forensic[env_name]["taxonomy"], forensic[env_name]["records"]
+        # The classes cover every episode once, except that an episode solved
+        # but not station-keeping (its post-settle RMS velocity >= 0.5) is in
+        # both solved_strict and survived_not_station.
+        both = sum(1 for a, b in zip(rec["solved"], rec["station"]) if a and not b)
+        want = 1.0 + both / len(rec["solved"])
+        got = sum(tax[c]["frac"] for c in (
+            "solved_strict", "station_not_strict", "survived_not_station", "crashed"))
+        frac_sums[env_name] = {"sum": got, "want": want, "solved_not_station": both}
+        if not abs(got - want) <= 1e-3:
+            bad.append(f"{env_name} taxonomy fractions sum to {got}, want {want}")
+    for cell, row in table.items():
+        for k, v in row.items():
+            if not math.isfinite(v):
+                bad.append(f"{cell} {k} is not finite: {v}")
+    if launches != launches_want():
+        bad.append(f"the robust eval launched {launches}, want none")
+    out = {
+        "phase": "robust_eval", "seconds": time.perf_counter() - t0, "card": card(),
+        "argv": argv[:-1], "table": table, "gates": gates, "launches": launches,
+        "eval_seconds": seconds, "forensic_windy_full_station": forensic_station,
+        "taxonomy_frac_sums": frac_sums,
+        "taxonomy": {k: forensic[k]["taxonomy"] for k in ("windy_full", "windy_sampled")},
+    }
+    emit(out)
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return out
+
+
+def phase_train_cli() -> dict:
+    """The trainer's entry point, `apps.train_control.main --robust
+    --curriculum 0,1`, for 4 updates at its defaults (1024 x 128, K=10,
+    autograd: no kernel), evaluating 16 episodes every 2 updates, every
+    launch counter set to 0 just before and read just after. It must write
+    its CSV (the reference header, 2 rows), its JSONL, the eval-time
+    checkpoint and the final one, which `utils.load_params` must read back
+    equal to the model's parameters bit for bit."""
+    import tempfile
+
+    import numpy as np
+
+    from autonomous_quadrotor_environment_tpu_torch.agents.networks import to_flax
+    from autonomous_quadrotor_environment_tpu_torch.apps import train_control
+    from autonomous_quadrotor_environment_tpu_torch.utils import TRAIN_LOG_HEADER, load_params
+
+    t0 = time.perf_counter()
+    models = []
+    init = train_control.ppo_init
+
+    def kept(*args, **kwargs):
+        made = init(*args, **kwargs)
+        models.append(made[0])
+        return made
+
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--robust", "--curriculum", "0,1", "--updates", "4", "--eval-every", "2",
+                "--eval-episodes", "16", "--out", tmp]
+        train_control.ppo_init = kept
+        try:
+            zero_counters()
+            result = train_control.main(argv)
+            sync()
+            launches = read_counters()
+        finally:
+            train_control.ppo_init = init
+        files = sorted(os.path.relpath(os.path.join(d, f), tmp)
+                       for d, _, fs in os.walk(tmp) for f in fs)
+        want_files = ["log_128_0.csv", "nn_final_128_0.msgpack", "train_128_0.jsonl",
+                      os.path.join("untrained_networks", "nn_128_0.msgpack")]
+        with open(os.path.join(tmp, "log_128_0.csv")) as f:
+            csv_lines = f.read().splitlines()
+        with open(os.path.join(tmp, "train_128_0.jsonl")) as f:
+            jsonl_rows = [json.loads(line) for line in f]
+        saved = load_params(os.path.join(tmp, "nn_final_128_0.msgpack"))
+    want_tree = to_flax(models[0])["params"]
+    got_tree = saved["params"]
+    bit_equal = set(got_tree) == set(want_tree) and all(
+        got_tree[h][n][k].dtype == want_tree[h][n][k].dtype
+        and np.array_equal(got_tree[h][n][k], want_tree[h][n][k])
+        for h in want_tree for n in want_tree[h] for k in want_tree[h][n])
+    out = {
+        "phase": "train_cli", "seconds": time.perf_counter() - t0, "card": card(),
+        "argv": argv[:-1], "result": result, "launches": launches, "files": files,
+        "csv_rows": len(csv_lines) - 1, "jsonl_updates": [r["update"] for r in jsonl_rows],
+        "final_checkpoint_bit_equal": bit_equal,
+    }
+    emit(out)
+    bad = []
+    if files != sorted(want_files):
+        bad.append(f"wrote {files}, want {sorted(want_files)}")
+    if csv_lines[0].split(",") != TRAIN_LOG_HEADER or len(csv_lines) != 3:
+        bad.append(f"the CSV log is {csv_lines[:1]} with {len(csv_lines) - 1} rows, want 2")
+    if [r["update"] for r in jsonl_rows] != [2, 4]:
+        bad.append(f"the JSONL log has updates {[r['update'] for r in jsonl_rows]}")
+    if not bit_equal:
+        bad.append("the final checkpoint does not read back equal to the model")
+    if launches != launches_want():
+        bad.append(f"the trainer's defaults launched {launches}, want none")
+    if result["total_steps"] != 4 * LEARN_B * LEARN_T or not all(
+            math.isfinite(v) for v in result["final_eval"].values()):
+        bad.append(f"bad result {result}")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1517,7 +1810,9 @@ def main() -> int:
     trr = phase_train_rowmajor(tr["warm_step_ms"])
     ln = phase_learn()
     lnr = phase_learn("learn_rowmajor", LEARN_ROWMAJOR_FIRST_EVAL, fused_adam=True)
-    for out in (kvp, gvp, rvp, rnd, sl, fly, lvp, land, tr, trr, ln, lnr):
+    robust = (phase_robust_vs_plain(), phase_robust_train(), phase_robust_eval(),
+              phase_train_cli())
+    for out in (kvp, gvp, rvp, rnd, sl, fly, lvp, land, tr, trr, ln, lnr) + robust:
         seconds[out["phase"]] = out["seconds"]
     max_err = max([r["max_abs_err"] for r in kvp["runs"]] + [sl["compare"]["max_abs_err"]])
     fused = tr["launches_per_step"][-1]

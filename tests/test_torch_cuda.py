@@ -16,10 +16,12 @@ import torch
 from autonomous_quadrotor_environment_tpu_torch.agents.networks import ActorCritic
 from autonomous_quadrotor_environment_tpu_torch.agents import ppo
 from autonomous_quadrotor_environment_tpu_torch.agents.ppo import fused_inputs
+from autonomous_quadrotor_environment_tpu_torch.agents.gae import gae_advantages
 from autonomous_quadrotor_environment_tpu_torch.config import (
     CameraConfig,
     EnvConfig,
     PPOConfig,
+    RandomizationConfig,
     TrainConfig,
 )
 from autonomous_quadrotor_environment_tpu_torch.envs import hover
@@ -556,3 +558,80 @@ def test_landing_decisions_render_through_the_kernel(card):
     assert rk.render_nadir_batch.launches == 2
     want = rk.render_nadir_batch_plain(state.env.x[:, 0:5:2], state.marker_world[:, 0:2])
     torch.testing.assert_close(out.obs.image, want, atol=1e-4, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# The robust trainer: B3 and B4 on batches of randomized physics and wind
+# ---------------------------------------------------------------------------
+
+ROBUST_ENV = EnvConfig(n_steps=1000, randomization=RandomizationConfig(enabled=True))
+
+
+def _robust_rows(card, b=256, steps=16):
+    """The rows of one robust `rollout_batch` after GAE, flattened row-major
+    as `ppo_update` takes them, from a seeded model."""
+    pcfg = PPOConfig(fused_update=True)
+    tcfg = TrainConfig(num_envs=b, rollout_steps=steps)
+    model, _, state = ppo.ppo_init(7, ROBUST_ENV, pcfg, tcfg)
+    assert state.env_states.dom.mass_factor.abs().max() > 0
+    _, roll, boot = ppo.rollout_batch(model, state.env_states, state.gen, ROBUST_ENV, steps)
+    returns, advs = gae_advantages(roll.rewards, roll.values, roll.dones, boot, pcfg.gamma,
+                                   pcfg.gae_lambda)
+    n = b * steps
+    obs = roll.obs.reshape(n, 75).contiguous()
+    aux = pr.pack_aux(roll.actions.reshape(n, 4), roll.logprobs.reshape(n, 4),
+                      returns.reshape(-1), advs.reshape(-1))
+    return model, obs, aux
+
+
+def test_rows_kernels_match_plain_on_a_randomized_batch(card):
+    """B3 on every block and B4 from a warmed Adam state, on the rows of a
+    robust rollout, against their plain versions at chip_smoke.py's gates:
+    loss rtol 1e-4, leaves, params and moments within a relative Frobenius
+    error of 1e-4; the same bits from a second B3 launch."""
+    model, obs, aux = _robust_rows(card)
+    tile = 128
+    blocks = torch.arange(obs.shape[0] // tile, dtype=torch.int32, device=card)
+    loss, _, grads = pr.fused_ppo_grad(model, obs, aux, blocks, tile=tile, **ROW_KW)
+    loss2, _, grads2 = pr.fused_ppo_grad(model, obs, aux, blocks, tile=tile, **ROW_KW)
+    lp, _, gp = pr.ppo_grad_plain(model, obs, aux, blocks, tile=tile, **ROW_KW)
+    torch.testing.assert_close(loss, lp, rtol=1e-4, atol=0)
+    assert all(_rel_fro(g, w) <= 1e-4 for g, w in zip(grads, gp))
+    assert torch.equal(loss, loss2) and all(torch.equal(a, b) for a, b in zip(grads, grads2))
+
+    opt = _warm_adam(model)
+    params = [p for l in model.linears() for p in (l.weight, l.bias)]
+    m0 = [opt.state[p]["exp_avg"].clone() for p in params]
+    v0 = [opt.state[p]["exp_avg_sq"].clone() for p in params]
+    leaves = [p.detach().clone() for p in params]
+    want = pr.ppo_grad_adam_plain(leaves, m0, v0, 3, obs, aux, blocks, tile=tile, lr=5e-4,
+                                  b1=0.9, b2=0.999, **ROW_KW)
+    loss, _ = pr.fused_ppo_grad_adam(model, opt, obs, aux, blocks, tile=tile, **ROW_KW)
+    torch.testing.assert_close(loss, want[0], rtol=1e-4, atol=0)
+    for i, p in enumerate(params):
+        assert _rel_fro(p.detach(), want[2][i]) <= 1e-4
+        assert _rel_fro(opt.state[p]["exp_avg"], want[3][i]) <= 1e-4
+        assert _rel_fro(opt.state[p]["exp_avg_sq"], want[4][i]) <= 1e-4
+
+
+@pytest.mark.parametrize("which", ["b3", "b4"])
+def test_robust_train_step_launches_its_kernels(card, which):
+    """A robust train step runs on the row-major branch (the rollout kernel
+    refuses randomization): K B3 launches with fused_update, K B4 with
+    fused_adam too, and neither B1 nor B2."""
+    flags = dict(fused_update=True) if which == "b3" else dict(fused_update=True,
+                                                                fused_adam=True)
+    pcfg = PPOConfig(k_epochs=3, **flags)
+    tcfg = TrainConfig(num_envs=256, rollout_steps=16, fused_rollout=True)
+    model, opt, state = ppo.ppo_init(0, ROBUST_ENV, pcfg, tcfg)
+    assert ppo.train_branch(model, opt, ROBUST_ENV, pcfg, tcfg) == "rowmajor"
+    counters = (rf.fused_rollout, pf.fused_ppo_grad_t, pr.fused_ppo_grad, pr.fused_ppo_grad_adam)
+    for c in counters:
+        c.launches = 0
+    before = [p.detach().clone() for p in model.parameters()]
+    state, metrics = ppo.make_train_step(model, opt, ROBUST_ENV, pcfg, tcfg)(state)
+    torch.cuda.synchronize()
+    want = (0, 0, 3, 0) if which == "b3" else (0, 0, 0, 3)
+    assert tuple(c.launches for c in counters) == want
+    assert all(torch.isfinite(v).all() for v in metrics.values())
+    assert any(not torch.equal(a, p) for a, p in zip(before, model.parameters()))

@@ -147,6 +147,16 @@ def test_random_initial_state_distribution():
 
 
 def test_randomization_is_refused():
+    """Randomization is ported: a randomized reset and step run from a
+    generator, and are refused only where they have neither their draws nor
+    a generator to draw them from."""
     cfg = tcfg.EnvConfig(randomization=tcfg.RandomizationConfig(enabled=True))
-    with pytest.raises(NotImplementedError):
-        thover.reset(torch.Generator().manual_seed(0), cfg, n=2)
+    with pytest.raises(ValueError, match="generator"):
+        thover.reset(None, cfg, det_state=torch.zeros(2, 13))
+    gen = torch.Generator().manual_seed(0)
+    s = thover.reset(gen, cfg, n=2)
+    assert s.dom.mass_factor.abs().max() > 0 and s.dom.gust_next.abs().max() > 0
+    with pytest.raises(ValueError, match="generator"):
+        thover.step(s, thover.zero_control(cfg).expand(2, 4), cfg)
+    s2, out = thover.step(s, thover.zero_control(cfg).expand(2, 4), cfg, gen=gen)
+    assert torch.isfinite(s2.x).all() and torch.isfinite(out.reward).all()

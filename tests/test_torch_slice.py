@@ -130,7 +130,8 @@ mods = sorted(m for m in sys.modules if m.startswith(pkg.__name__))
 for name in ("agents.gae", "agents.ppo", "ops.ppo_fused", "ops.ppo_fused_t", "ops.rollout_fused",
              "ops.render_kernel", "envs.sensors", "render.camera", "render.scene",
              "landing.reward", "landing.networks", "landing.env", "landing.ppo",
-             "landing.oracle", "apps.eval_landing", "fixtures"):
+             "landing.oracle", "apps.eval_landing", "apps.train_control", "apps.robust_eval",
+             "core.randomization", "utils.checkpoint", "utils.metrics", "fixtures"):
     assert pkg.__name__ + "." + name in mods, name
 print("imported", len(mods))
 """

@@ -103,11 +103,11 @@ def test_train_loop_equals_sequential_steps():
 
 
 def test_make_train_step_refuses_what_is_not_ported():
-    """Only what is still to be ported is refused: randomization (ROADMAP
-    A12) and bf16 products in a kernel. Every other configuration builds,
-    on the CPU at any width and tile; a state of another model, and a model
-    whose std disagrees with the config, are refused as in the JAX
-    package."""
+    """Only what is still to be ported is refused: bf16 products in a
+    kernel. Every other configuration builds, on the CPU at any width and
+    tile, randomization among them (ported since; it takes the row-major
+    branch and steps); a state of another model, and a model whose std
+    disagrees with the config, are refused as in the JAX package."""
     env_cfg = tcfg.EnvConfig()
     tc = tcfg.TrainConfig(num_envs=B, rollout_steps=STEPS, network_size=HIDDEN,
                           fused_rollout=True)
@@ -120,8 +120,13 @@ def test_make_train_step_refuses_what_is_not_ported():
     robust = dataclasses.replace(
         env_cfg, randomization=dataclasses.replace(env_cfg.randomization, enabled=True)
     )
-    with pytest.raises(NotImplementedError, match="A12"):
-        tppo.make_train_step(model, opt, robust, pcfg, tc)
+    assert tppo.train_branch(model, opt, robust, pcfg, tc) == "rowmajor"
+    _, _, robust_state = tppo.ppo_init(0, robust, pcfg, tc, device="cpu")
+    assert robust_state.env_states.dom.mass_factor.abs().max() > 0
+    robust_state = dataclasses.replace(robust_state, model=model, optimizer=opt)
+    robust_state, metrics = tppo.make_train_step(model, opt, robust, pcfg, tc)(robust_state)
+    assert robust_state.update_i == 1
+    assert all(torch.isfinite(v).all() for v in metrics.values())
     for p, tcc in [(dataclasses.replace(pcfg, fused_compute="bf16"), tc),
                    (dataclasses.replace(pcfg, fused_compute="bf16", fused_adam=True),
                     dataclasses.replace(tc, fused_rollout=False))]:

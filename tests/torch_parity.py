@@ -10,7 +10,10 @@ import pytest
 import torch
 
 from autonomous_quadrotor_environment_tpu_torch import config as tcfg
-from autonomous_quadrotor_environment_tpu_torch.core.randomization import zeros_domain
+from autonomous_quadrotor_environment_tpu_torch.core.randomization import (
+    DomainDraws,
+    DomainParams,
+)
 from autonomous_quadrotor_environment_tpu_torch.envs.hover import EnvState
 
 # The step-math tolerance of tests/test_rollout_fused.py, which ROADMAP.md
@@ -54,15 +57,23 @@ def port_env_config(jcfg) -> tcfg.EnvConfig:
     )
 
 
+DOM_FIELDS = ("kf_degrade", "mass_factor", "ir_factor", "j_factor", "gust_last", "gust_next",
+              "gust_scale")
+
+
+def port_dom(jd) -> DomainParams:
+    """A batched JAX DomainParams as the port's."""
+    return DomainParams(**{f: t(getattr(jd, f)) for f in DOM_FIELDS})
+
+
 def port_states(js) -> EnvState:
-    """A batched JAX EnvState (randomization off) as the port's EnvState."""
-    b = np.asarray(js.x).shape[0]
+    """A batched JAX EnvState as the port's EnvState, its domain too."""
     return EnvState(
         x=t(js.x), i=t(js.i), prev_shaping=t(js.prev_shaping),
         has_shaping=t(js.has_shaping), prev_ang=t(js.prev_ang), ang=t(js.ang),
         ang_vel=t(js.ang_vel), done=t(js.done), solved=t(js.solved),
         abs_sum=t(js.abs_sum), hist=t(js.hist), last_action=t(js.last_action),
-        vel_target=t(js.vel_target), dom=zeros_domain(b),
+        vel_target=t(js.vel_target), dom=port_dom(js.dom),
     )
 
 
@@ -78,6 +89,11 @@ def assert_states_close(ps: EnvState, js, rtol=RTOL, atol=ATOL) -> None:
             n(getattr(ps, name)).astype(np.float32),
             np.asarray(getattr(js, name)).astype(np.float32),
             rtol=rtol, atol=atol, err_msg=name,
+        )
+    for name in DOM_FIELDS:
+        np.testing.assert_allclose(
+            n(getattr(ps.dom, name)), np.asarray(getattr(js.dom, name)),
+            rtol=rtol, atol=atol, err_msg="dom." + name,
         )
 
 
@@ -114,32 +130,146 @@ def jax_rollout_draws(jmodel, jparams, jstates, key, jenv_cfg, steps, reset_pool
     ``reset_pool=0``, (T, B, 13): each env's fresh reset at each step, which
     follows the env's key chain through JAX's own done flags. Also returns
     JAX's ``(new_states, rollout, bootstrap)``."""
+    draws, out = jax_robust_rollout_draws(jmodel, jparams, jstates, key, jenv_cfg, steps,
+                                          reset_pool)
+    return n(draws["noise"]), n(draws["fresh_x0"]), out
+
+
+@functools.lru_cache(maxsize=None)
+def _domain_draw_fn(severity_sample):
+    import jax
+    import jax.numpy as jnp
+
+    def one(key):
+        k1, k2, k3, k4, k5 = jax.random.split(key, 5)
+        if severity_sample:
+            k5, k_sev = jax.random.split(k5)
+            sev = jax.random.uniform(k_sev, (), jnp.float32)
+        else:
+            sev = jnp.ones((), jnp.float32)
+        return (jax.random.uniform(k1, (4,), jnp.float32), jax.random.normal(k2, (), jnp.float32),
+                jax.random.uniform(k3, (4,), jnp.float32), jax.random.normal(k4, (3,), jnp.float32),
+                jax.random.normal(k5, (3,), jnp.float32), sev)
+
+    return jax.jit(jax.vmap(one))
+
+
+def jax_domain_draws(keys, severity_sample=False) -> DomainDraws:
+    """The draws the JAX package's `sample_domain` takes from each key
+    (..., 2), walking its splits, as a port `DomainDraws` of CPU tensors
+    with the keys' leading axes."""
+    keys = np.asarray(keys)
+    lead = keys.shape[:-1]
+    out = _domain_draw_fn(bool(severity_sample))(keys.reshape(-1, keys.shape[-1]))
+    return DomainDraws(*(t(np.asarray(x).reshape(lead + np.asarray(x).shape[1:])) for x in out))
+
+
+@functools.lru_cache(maxsize=None)
+def _gust_fn():
+    import jax
+    import jax.numpy as jnp
+
+    def one(key):
+        key, k_wind = jax.random.split(key)
+        return key, jax.random.normal(k_wind, (3,), jnp.float32)
+
+    return jax.jit(jax.vmap(one))
+
+
+def jax_step_gusts(keys, steps):
+    """The gust draws of ``steps`` `hover.step` calls from each env's state
+    key (B, 2), which each step splits ``key, k_wind`` (JAX hover.py:150):
+    (steps, B, 3) numpy, and the keys after them."""
+    out = []
+    for _ in range(steps):
+        keys, g = _gust_fn()(keys)
+        out.append(np.asarray(g))
+    return np.stack(out) if out else np.zeros((0,) + np.asarray(keys).shape[:1] + (3,),
+                                              np.float32), keys
+
+
+@functools.lru_cache(maxsize=None)
+def _reset_split_fn():
+    import jax
+
+    from autonomous_quadrotor_environment_tpu.envs import hover as jhover
+
+    def one(key):
+        k_dom, k_init, k_state = jax.random.split(key, 3)
+        return k_dom, jhover.random_initial_state(k_init), k_state
+
+    return jax.jit(jax.vmap(one))
+
+
+def jax_reset_draws(keys, jenv_cfg):
+    """What the JAX package's `hover.reset` draws from each key (N, 2) of a
+    hover task (JAX hover.py:245-281): the initial states (N, 13), the
+    domains' draws (`DomainDraws`), the warmup steps' gust draws (warmup,
+    N, 3), and each episode's key after its warmup (its `state.key`)."""
+    assert not jenv_cfg.has_vel_target
+    k_dom, x0, k_state = _reset_split_fn()(np.asarray(keys))
+    x0 = np.asarray(x0)
+    dom = jax_domain_draws(k_dom, jenv_cfg.randomization.severity_sample)
+    gust, k_after = jax_step_gusts(k_state, jenv_cfg.warmup)
+    return x0, dom, gust, np.asarray(k_after)
+
+
+def jax_robust_rollout_draws(jmodel, jparams, jstates, key, jenv_cfg, steps, reset_pool):
+    """Every draw of the JAX package's `rollout_batch` from ``key``, as the
+    port's `rollout_batch` takes them: a dict of CPU tensors ``noise`` (T,
+    B, 4); the fresh episodes' ``fresh_x0`` ((P | T, B, 13)), and under
+    randomization their ``fresh_dom`` (`DomainDraws` over the P x B or T x
+    B fresh episodes, pool or step major) and ``fresh_gust`` (warmup,
+    P | T, B, 3) or (warmup, P x B, 3); and each step's ``gust_eps`` (T,
+    B, 3). Each env's key chain is followed through JAX's own done flags:
+    a step splits ``key, k_wind``, then the auto-reset splits ``key,
+    k_reset``, a done env carrying on with its fresh episode's key (the
+    post-warmup key of ``reset(k_reset)``, or with a pool the second half of
+    that split). Also returns JAX's ``(new_states, rollout, bootstrap)``."""
     import jax
 
     from autonomous_quadrotor_environment_tpu.agents.ppo import rollout_batch
-    from autonomous_quadrotor_environment_tpu.envs import hover as jhover
 
     out = jax.jit(lambda p, s, k: rollout_batch(jmodel, p, s, k, jenv_cfg, steps,
                                                 reset_pool=reset_pool))(jparams, jstates, key)
     b = np.asarray(jstates.x).shape[0]
-    init = jax.vmap(lambda k: jhover.random_initial_state(jax.random.split(k, 3)[1]))
-    split2 = jax.vmap(jax.random.split)
+    dones = np.asarray(out[1].dones)
+    split2 = _split_fn()
+    keys = np.asarray(jstates.key)
+    gusts = []
     if reset_pool > 0:
         k_pool, k_steps = jax.random.split(key)
-        fresh = init(jax.random.split(k_pool, reset_pool * b)).reshape(reset_pool, b, 13)
+        pool_keys = np.asarray(jax.random.split(k_pool, reset_pool * b))
+        x0, dom, fresh_gust, _ = jax_reset_draws(pool_keys, jenv_cfg)
+        for step_i in range(steps):
+            (g,), keys = jax_step_gusts(keys, 1)
+            gusts.append(g)
+            pair = np.asarray(split2(keys))
+            keys = np.where(dones[step_i][:, None], pair[:, 1], pair[:, 0])
+        fresh = [x0.reshape(reset_pool, b, 13), dom, fresh_gust]
+        lead = (reset_pool, b)
     else:
         k_steps = key
-        dones = np.asarray(out[1].dones)
-        reset = jax.jit(jax.vmap(lambda k: jhover.reset(k, jenv_cfg)))
-        keys, fresh = jstates.key, []
+        fresh = []
         for step_i in range(steps):
-            k_env, k_reset = jax.numpy.moveaxis(split2(split2(keys)[:, 0]), 1, 0)
-            fresh.append(np.asarray(init(k_reset)))
-            keys = jax.numpy.where(dones[step_i][:, None], reset(k_reset).key, k_env)
-        fresh = np.stack(fresh)
+            (g,), keys = jax_step_gusts(keys, 1)
+            gusts.append(g)
+            pair = np.asarray(split2(keys))
+            k_env, k_reset = pair[:, 0], pair[:, 1]
+            fresh.append(jax_reset_draws(k_reset, jenv_cfg))
+            keys = np.where(dones[step_i][:, None], fresh[-1][3], k_env)
+        x0 = np.stack([f[0] for f in fresh])
+        dom = DomainDraws(*(torch.stack([getattr(f[1], name) for f in fresh]) for name in (
+            "kf", "mass", "ir", "j", "gust", "severity")))
+        fresh = [x0, dom, np.stack([f[2] for f in fresh], axis=1)]
+        lead = (steps, b)
     noise = np.stack([np.asarray(jax.random.normal(k, (b, 4)))
                       for k in jax.random.split(k_steps, steps)])
-    return noise, np.asarray(fresh), out
+    x0, dom, fresh_gust = fresh
+    draws = {"noise": t(noise), "fresh_x0": t(x0.reshape(lead + (13,)))}
+    if jenv_cfg.randomization.enabled:
+        draws.update(fresh_dom=dom, fresh_gust=t(fresh_gust), gust_eps=t(np.stack(gusts)))
+    return draws, out
 
 
 @functools.lru_cache(maxsize=None)
