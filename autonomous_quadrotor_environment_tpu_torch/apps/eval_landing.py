@@ -40,7 +40,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--oracle", action="store_true", help="also run the PI oracle")
     p.add_argument("--conv-dtype", type=str, default="float32",
                    choices=("float32", "bfloat16"),
-                   help="CNN compute dtype; the port runs float32 only so far")
+                   help="CNN compute dtype (params stay float32)")
     p.add_argument("--device", type=str, default=None,
                    help="torch device; the CUDA card when omitted")
     return p
@@ -57,11 +57,6 @@ def load_controller(path: str, size: int, device) -> ActorCritic:
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
-    if args.conv_dtype != "float32":
-        raise NotImplementedError(
-            "--conv-dtype bfloat16 is not ported yet: the bf16 conv comes with the "
-            "landing trainer (ROADMAP A13b)"
-        )
     device = resolve_device(args.device)
     # float32 means float32: cuDNN would run the convs in TF32 by default.
     torch.backends.cudnn.allow_tf32 = False
@@ -73,7 +68,9 @@ def main(argv=None) -> dict:
     if args.policy:
         # The first-conv layout (plain or space-to-depth) is read from the
         # checkpoint itself.
-        model = LandingActorCritic.from_flax(load_params(args.policy)).to(device).eval()
+        conv_dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[args.conv_dtype]
+        model = LandingActorCritic.from_flax(load_params(args.policy),
+                                             conv_dtype=conv_dtype).to(device).eval()
         gen = torch.Generator(device=device).manual_seed(args.seed)
         eval_fn = make_landing_eval_fn(model, cfgs, ctrl, args.episodes)
         results.update({k: float(v) for k, v in eval_fn(gen).items()})

@@ -194,10 +194,10 @@ class SensorConfig:
 
 @dataclasses.dataclass(frozen=True)
 class PPOConfig:
-    """PPO hyperparameters (reference ppo.py:297-318). The fields the port
-    does not run yet (``fused_compute="bf16"``, the reshuffle modes) are
-    kept so the config compares equal to the JAX package's;
-    `agents.ppo.make_train_step` refuses bf16 products."""
+    """PPO hyperparameters (reference ppo.py:297-318). ``fused_compute="bf16"``
+    is kept so the config compares equal to the JAX package's;
+    `agents.ppo.make_train_step` refuses bf16 products. The reshuffle modes
+    run in the landing trainer (`landing.ppo.landing_update`)."""
 
     lr: float = 5e-4
     gamma: float = 0.99

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..config import PhysicsConfig
+from ..device import const
 from .quaternion import deriv_quat, quat_normalize, quat_rot_mat
 from .randomization import DomainParams
 
@@ -53,8 +54,9 @@ def f2w(
     """Indirect control: body thrust (B,) + moments (B, 3) -> motor speeds,
     with saturation; ``u = w^2`` solves the constant allocation system."""
     alloc = _allocation_matrix(phys)
-    x_mat = torch.as_tensor(alloc, dtype=f.dtype, device=f.device)
-    x_inv = torch.as_tensor(np.linalg.inv(alloc), dtype=f.dtype, device=f.device)
+    rows = lambda a: tuple(map(tuple, a.tolist()))
+    x_mat = const(rows(alloc), f.dtype, f.device)
+    x_inv = const(rows(np.linalg.inv(alloc)), f.dtype, f.device)
     y = torch.cat([f[:, None], m], dim=-1)
     u = y @ x_inv.T
     u_max = phys.max_motor_thrust / phys.k_f
@@ -105,7 +107,7 @@ def rotor_gyro_speed(
     w: torch.Tensor, phys: PhysicsConfig, dom: DomainParams, randomize: bool = False
 ) -> torch.Tensor:
     """Net rotor angular momentum rate Omega_r, (B,)."""
-    signs = torch.tensor([-1.0, 1.0, -1.0, 1.0], dtype=w.dtype, device=w.device)
+    signs = const((-1.0, 1.0, -1.0, 1.0), w.dtype, w.device)
     if randomize:
         ir = phys.i_r * (1.0 + dom.ir_factor)
         return torch.sum(signs * w * ir, dim=-1)
@@ -135,12 +137,12 @@ def drone_eq(
 
     # Aerodynamic drag in the body frame.
     v_body = torch.einsum("bji,bj->bi", rot, vel + wind)
-    area = torch.tensor(phys.area, dtype=dtype, device=device)
+    area = const(tuple(phys.area), dtype, device)
     f_drag = -0.5 * phys.rho * phys.c_d * area * torch.abs(v_body) * v_body
 
     # Arm rotational drag, closed form of the 10-segment sum; z doubled.
     coef = phys.rho * phys.c_d * phys.beam_thickness * (phys.d_arm / 10.0) * phys.arm_drag_sum
-    m_drag = -coef * torch.abs(omega) * omega * torch.tensor([1.0, 1.0, 2.0], dtype=dtype, device=device)
+    m_drag = -coef * torch.abs(omega) * omega * const((1.0, 1.0, 2.0), dtype, device)
 
     # Gyroscopic moment from rotor momentum.
     m_gyro = torch.stack(
@@ -152,11 +154,11 @@ def drone_eq(
     f_body = torch.stack([zero, zero, thrust], dim=-1) + f_drag
     f_inertial = torch.einsum("bij,bj->bi", rot, f_body)
     quad_m = phys.mass * (1.0 + dom.mass_factor[:, None]) if randomize else phys.mass
-    accel = f_inertial / quad_m - torch.tensor([0.0, 0.0, phys.gravity], dtype=dtype, device=device)
+    accel = f_inertial / quad_m - const((0.0, 0.0, phys.gravity), dtype, device)
 
     # Rotational dynamics. The Coriolis term uses the unperturbed J while the
     # inverse uses the randomized one, as the JAX package does.
-    j_diag = torch.tensor([phys.j_xx, phys.j_yy, phys.j_zz], dtype=dtype, device=device)
+    j_diag = const((phys.j_xx, phys.j_yy, phys.j_zz), dtype, device)
     m_in = moment + m_gyro + m_drag - torch.linalg.cross(omega, j_diag * omega, dim=-1)
     inv_j = 1.0 / (j_diag * (1.0 + dom.j_factor)) if randomize else 1.0 / j_diag
     accel_ang = inv_j * m_in
@@ -220,7 +222,7 @@ def aux_at_state(
     rot = quat_rot_mat(q)
     # The reference's double-gravity accelerometer formula, kept as the JAX
     # package keeps it.
-    grav = torch.tensor([0.0, 0.0, -phys.gravity], dtype=x.dtype, device=x.device)
+    grav = const((0.0, 0.0, -phys.gravity), x.dtype, x.device)
     accelerometer_read = torch.einsum("bji,bj->bi", rot, accel + grav)
     v_q = deriv_quat(x[:, 10:13], q)
     return StepAux(
@@ -266,7 +268,7 @@ def physics_step(
     rot = quat_rot_mat(x_new[:, 6:10])
     if compute_accel_aux:
         accel = deriv(x_new)[:, 1:6:2]
-        grav = torch.tensor([0.0, 0.0, -phys.gravity], dtype=x.dtype, device=x.device)
+        grav = const((0.0, 0.0, -phys.gravity), x.dtype, x.device)
         accelerometer_read = torch.einsum("bji,bj->bi", rot, accel + grav)
     else:
         accel = torch.zeros_like(x_new[:, 0:3])

@@ -19,6 +19,7 @@ from typing import Optional
 import torch
 
 from ..config import RandomizationConfig
+from ..device import const
 
 
 @dataclasses.dataclass
@@ -103,7 +104,7 @@ def sample_domain(cfg: RandomizationConfig, n: int, gen: Optional[torch.Generato
             raise ValueError("a randomized domain needs its draws or a generator")
         draws = DomainDraws.draw(gen, n, cfg.severity_sample, dtype)
     sev = draws.severity if cfg.severity_sample else torch.ones_like(draws.mass)
-    gust_std = torch.tensor(cfg.gust_std, dtype=dtype, device=draws.gust.device)
+    gust_std = const(cfg.gust_std, dtype, draws.gust.device)
     return DomainParams(
         kf_degrade=draws.kf * cfg.d_kf * sev[:, None],
         mass_factor=sev * torch.clamp(draws.mass * cfg.d_m, -2.0 * cfg.d_m, 2.0 * cfg.d_m),
@@ -130,7 +131,7 @@ def wind_update(dom: DomainParams, gust_eps: torch.Tensor, i: torch.Tensor,
     period = cfg.gust_period
     idx = torch.remainder(i, period) - 1
     resample = (idx == 0)[:, None]
-    gust_std = torch.tensor(cfg.gust_std, dtype=dom.gust_next.dtype, device=gust_eps.device)
+    gust_std = const(cfg.gust_std, dom.gust_next.dtype, gust_eps.device)
     new_gust = gust_eps.to(dom.gust_next.dtype) * gust_std * dom.gust_scale[:, None]
     gust_last = torch.where(resample, dom.gust_next, dom.gust_last)
     gust_next = torch.where(resample, new_gust, dom.gust_next)

@@ -26,6 +26,7 @@ import torch
 from ..config import BB_POS, BB_VEL, EnvConfig
 from ..core.dynamics import physics_step
 from ..core.quaternion import euler_quat, quat_euler, quat_normalize
+from ..device import const
 from ..core.randomization import (
     DomainDraws,
     DomainParams,
@@ -73,21 +74,14 @@ def zero_control(cfg: EnvConfig, dtype=torch.float32, device=None) -> torch.Tens
     p = cfg.physics
     if cfg.direct_control:
         return torch.full((4,), p.hover_action_direct, dtype=dtype, device=device)
-    return torch.tensor([p.mass * p.gravity, 0.0, 0.0, 0.0], dtype=dtype, device=device)
+    return const((p.mass * p.gravity, 0.0, 0.0, 0.0), dtype, device)
 
 
 def _bb_limits(cfg: EnvConfig, dtype, device) -> torch.Tensor:
     """Bounding box over [|vel|(3), |euler|(3), |ang_vel|(3)]."""
-    lim = torch.tensor(
-        [
-            cfg.bb_vel, cfg.bb_vel, cfg.bb_vel,
-            cfg.bb_ang_rp, cfg.bb_ang_rp, cfg.bb_ang_psi,
-            cfg.bb_ang_vel, cfg.bb_ang_vel, cfg.bb_ang_vel,
-        ],
-        dtype=dtype,
-        device=device,
-    )
-    return lim * cfg.bb_scale
+    lim = (cfg.bb_vel, cfg.bb_vel, cfg.bb_vel, cfg.bb_ang_rp, cfg.bb_ang_rp, cfg.bb_ang_psi,
+           cfg.bb_ang_vel, cfg.bb_ang_vel, cfg.bb_ang_vel)
+    return const(lim, dtype, device) * cfg.bb_scale
 
 
 def random_initial_state(gen: torch.Generator, n: int, dtype=torch.float32) -> torch.Tensor:
@@ -246,7 +240,7 @@ def reset(
     n = x0.shape[0]
     vel_target = None
     if cfg.has_vel_target:
-        vmax = torch.tensor(cfg.vel_target_max, dtype=dtype, device=x0.device)
+        vmax = const(tuple(cfg.vel_target_max), dtype, x0.device)
         u = torch.rand(n, 3, generator=gen, dtype=dtype, device=x0.device)
         vel_target = (u * 2.0 - 1.0) * vmax
     dom = sample_domain(cfg.randomization, n, gen, dom_draws, dtype, x0.device)

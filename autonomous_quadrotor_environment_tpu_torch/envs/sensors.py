@@ -30,6 +30,7 @@ import torch
 
 from ..config import PhysicsConfig, SensorConfig
 from ..core.quaternion import deriv_quat, rot_mat_quat
+from ..device import const
 
 # Slots of `SensorNoise.normal` (B, N_NORMAL, 3), in the order the JAX
 # package's `sensor_fused` splits its key. A triad read takes a gravity and
@@ -230,8 +231,8 @@ def triad_read(
     (quadrotor_env_opt.py:552-596): noisy observation of the rotated
     gravity/magnet; returns (q, R.T) and advances a_b_grav and m_b."""
     dtype, device = s.a_b_grav.dtype, s.a_b_grav.device
-    gravity_vec = torch.tensor([0.0, 0.0, -phys.gravity], dtype=dtype, device=device)
-    magnet_vec = torch.tensor(cfg.magnet_vec, dtype=dtype, device=device)
+    gravity_vec = const((0.0, 0.0, -phys.gravity), dtype, device)
+    magnet_vec = const(tuple(cfg.magnet_vec), dtype, device)
 
     if primary:
         s, accel_body = accel_read(s, reads, noise.g_normal, cfg, dt, primary=True)
@@ -271,8 +272,7 @@ def accel_int(
     s, accel_body = accel_read(s, reads, accel_noise, cfg, dt, primary=primary)
     s, _q, r = triad_read(s, reads, triad_noise, cfg, phys, dt, primary=primary)
     if primary:
-        up = torch.tensor([0.0, 0.0, phys.gravity], dtype=accel_body.dtype,
-                          device=accel_body.device)
+        up = const((0.0, 0.0, phys.gravity), accel_body.dtype, accel_body.device)
         acceleration = torch.einsum("bji,bj->bi", r, accel_body) + up
     else:
         acceleration = torch.einsum("bij,bj->bi", r, accel_body)

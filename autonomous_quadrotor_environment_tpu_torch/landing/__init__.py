@@ -1,5 +1,5 @@
-"""Hierarchical visual-landing task of the port: env, CNN policy, eval and
-the PI oracle. The landing trainer is still to be ported (ROADMAP A13b)."""
+"""Hierarchical visual-landing task of the port: env, CNN policy, PPO
+trainer, eval and the PI oracle."""
 
 from .env import (
     LandingConfigs,
@@ -9,6 +9,7 @@ from .env import (
     ResetDraws,
     landing_reset,
     landing_step,
+    landing_step_autoreset,
 )
 from .networks import LandingActorCritic
 from .oracle import oracle_landing_eval
@@ -25,6 +26,7 @@ __all__ = [
     "landing_eval",
     "landing_reset",
     "landing_step",
+    "landing_step_autoreset",
     "make_landing_eval_fn",
     "oracle_landing_eval",
     "visual_reward",

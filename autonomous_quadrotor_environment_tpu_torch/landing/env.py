@@ -30,6 +30,7 @@ import torch
 from ..config import CameraConfig, EnvConfig, LandingConfig, MarkerConfig, SensorConfig
 from ..core.dynamics import aux_at_state
 from ..core.randomization import zeros_domain
+from ..device import const
 from ..envs import hover
 from ..envs.featurizer import feat_size, push_hist
 from ..envs.sensors import (
@@ -135,20 +136,17 @@ def start_geometry(draws: ResetDraws, cfgs: LandingConfigs) -> tuple[torch.Tenso
     return marker_world, x0
 
 
-def _inner_interval(
-    state: LandingState, cfgs: LandingConfigs, ctrl_model: Any, noise: SensorNoise
-) -> LandingState:
-    """TASK_INTERVAL_STEPS physics frames under the frozen controller
-    (reference rl_worker.py:402-416); ``noise`` holds one fused read's
-    draws per frame, leading axes (frames, B)."""
+def _frames(env_s: hover.EnvState, sens_s: SensorState, hist: torch.Tensor,
+            crtl_action: torch.Tensor, vel_error: torch.Tensor, noise: SensorNoise,
+            cfgs: LandingConfigs, ctrl_model: Any):
+    """The interval's frames on tensors: what `_inner_interval` runs and a
+    CUDA graph captures."""
     env_cfg = cfgs.env
     phys = env_cfg.physics
-    vel_error = state.vel_error
     # The velocity command sits in the velocity slots 1, 3, 5 of the 14-dim
     # sensor state (JAX landing/env.py:101-103).
     err14 = torch.zeros(vel_error.shape[0], 14, dtype=vel_error.dtype, device=vel_error.device)
     err14[:, 1:6:2] = vel_error
-    env_s, sens_s, hist, crtl_action = state.env, state.sens, state.hist, state.crtl_action
     for f in range(cfgs.landing.task_interval):
         # The fusion reads the diagnostics of the pre-step state under the
         # last action (one RHS evaluation, core/dynamics.aux_at_state).
@@ -160,10 +158,123 @@ def _inner_interval(
         hist = push_hist(hist, fused.states_sens - err14, crtl_action)
         crtl_action = ctrl_model.actor_mean(hist)
         env_s, _out = hover.step(env_s, crtl_action, env_cfg)  # done flag ignored
+    return env_s, sens_s, hist, crtl_action
+
+
+def _inner_interval(
+    state: LandingState, cfgs: LandingConfigs, ctrl_model: Any, noise: SensorNoise
+) -> LandingState:
+    """TASK_INTERVAL_STEPS physics frames under the frozen controller
+    (reference rl_worker.py:402-416), eagerly; ``noise`` holds one fused
+    read's draws per frame, leading axes (frames, B)."""
+    env_s, sens_s, hist, crtl_action = _frames(
+        state.env, state.sens, state.hist, state.crtl_action, state.vel_error, noise, cfgs,
+        ctrl_model)
     return state.replace(
         env=env_s, sens=sens_s, hist=hist, crtl_action=crtl_action,
         internal_frame=state.internal_frame + cfgs.landing.task_interval,
     )
+
+
+def _leaves(tree) -> list:
+    """The tensors of a tree of dataclasses and NamedTuples, in field order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if dataclasses.is_dataclass(tree):
+        tree = [getattr(tree, f.name) for f in dataclasses.fields(tree)]
+    return [leaf for node in tree for leaf in _leaves(node)]
+
+
+def _rebuild(tree, leaves):
+    """``tree`` with its tensors replaced, in `_leaves` order, from the
+    iterator ``leaves``."""
+    if isinstance(tree, torch.Tensor):
+        return next(leaves)
+    if dataclasses.is_dataclass(tree):
+        return type(tree)(**{f.name: _rebuild(getattr(tree, f.name), leaves)
+                             for f in dataclasses.fields(tree)})
+    nodes = [_rebuild(node, leaves) for node in tree]
+    return type(tree)(*nodes) if hasattr(tree, "_fields") else type(tree)(nodes)
+
+
+class IntervalGraph:
+    """`_inner_interval` as one CUDA graph at one batch size, dtype and
+    device, for one controller and config: the interval's thousands of small
+    launches become one replay.
+
+    It is captured on first use: the inputs are copied into static buffers,
+    the interval runs twice eagerly on a side stream (cuBLAS and the cached
+    constants settle), then once under capture into the memory pool that
+    every interval graph shares. Each call copies the state and the
+    eagerly drawn sensor noise into the static inputs, replays, and clones
+    the outputs, so that what the caller keeps never aliases a buffer the
+    next replay overwrites. Launches of the counted kernels made during
+    capture are taken back from their counters and added on every replay;
+    the interval itself holds none (B5 renders after it)."""
+
+    COUNTED = (render_nadir_batch,)
+    _pool = None
+
+    def __init__(self, state: LandingState, cfgs: LandingConfigs, ctrl_model: Any,
+                 noise: SensorNoise):
+        self.cfgs, self.ctrl_model = cfgs, ctrl_model
+        args = (state.env, state.sens, state.hist, state.crtl_action, state.vel_error, noise)
+        self.inputs = [x.clone() for x in _leaves(args)]
+        self.static_args = _rebuild(args, iter(self.inputs))
+        device = state.hist.device
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                self._run()
+        torch.cuda.current_stream(device).wait_stream(side)
+        if IntervalGraph._pool is None:
+            IntervalGraph._pool = torch.cuda.graph_pool_handle()
+        self.graph = torch.cuda.CUDAGraph()
+        before = [fn.launches for fn in self.COUNTED]
+        with torch.cuda.graph(self.graph, pool=IntervalGraph._pool, stream=side):
+            self.outputs = self._run()
+        self.captured = [fn.launches - b for fn, b in zip(self.COUNTED, before)]
+        for fn, b in zip(self.COUNTED, before):
+            fn.launches = b
+
+    def _run(self):
+        return _leaves(_frames(*self.static_args, self.cfgs, self.ctrl_model))
+
+    def __call__(self, state: LandingState, noise: SensorNoise) -> LandingState:
+        args = (state.env, state.sens, state.hist, state.crtl_action, state.vel_error, noise)
+        for dst, src in zip(self.inputs, _leaves(args)):
+            dst.copy_(src)
+        self.graph.replay()
+        for fn, n in zip(self.COUNTED, self.captured):
+            fn.launches += n
+        out = [x.clone() for x in self.outputs]
+        env_s, sens_s, hist, crtl_action = _rebuild(
+            (state.env, state.sens, state.hist, state.crtl_action), iter(out))
+        return state.replace(
+            env=env_s, sens=sens_s, hist=hist, crtl_action=crtl_action,
+            internal_frame=state.internal_frame + self.cfgs.landing.task_interval,
+        )
+
+
+_GRAPHS: dict = {}
+
+
+def interval(state: LandingState, cfgs: LandingConfigs, ctrl_model: Any,
+             noise: SensorNoise) -> LandingState:
+    """The decision interval: on the card, the replay of the `IntervalGraph`
+    of this batch size, dtype, device, controller and config (captured on
+    first use; a failed capture raises); on the CPU, `_inner_interval`."""
+    hist = state.hist
+    if hist.device.type != "cuda":
+        return _inner_interval(state, cfgs, ctrl_model, noise)
+    # The graph holds the controller, so its id is not reused while the
+    # entry lives.
+    key = (hist.shape[0], hist.dtype, hist.device, cfgs, id(ctrl_model))
+    graph = _GRAPHS.get(key)
+    if graph is None:
+        graph = _GRAPHS[key] = IntervalGraph(state, cfgs, ctrl_model, noise)
+    return graph(state, noise)
 
 
 def _observe(state: LandingState, cfgs: LandingConfigs) -> LandingObs:
@@ -224,7 +335,7 @@ def landing_reset(
         done=falses,
     )
     # Warm-up interval (reference ppo_calls=0 tick with vel_error = 0).
-    state = _inner_interval(state, cfgs, ctrl_model, noise)
+    state = interval(state, cfgs, ctrl_model, noise)
     rew = _reward(state, cfgs, zeros(3))
     state = state.replace(last_shaping=rew.shaping, has_shaping=torch.ones_like(falses))
     return state, _observe(state, cfgs)
@@ -248,11 +359,9 @@ def landing_step(
     if noise is None:
         noise = draw_interval(gen, cfgs, state.hist.shape[0], dtype)
     action = visual_action.to(dtype)
-    vel_error = (
-        action * torch.tensor(lcfg.velocity_scale, dtype=dtype, device=device)
-        + torch.tensor(lcfg.velocity_d, dtype=dtype, device=device)
-    )
-    state = _inner_interval(state.replace(vel_error=vel_error), cfgs, ctrl_model, noise)
+    vel_error = (action * const(tuple(lcfg.velocity_scale), dtype, device)
+                 + const(tuple(lcfg.velocity_d), dtype, device))
+    state = interval(state.replace(vel_error=vel_error), cfgs, ctrl_model, noise)
     rew = _reward(state, cfgs, action)
     state = state.replace(
         last_shaping=rew.shaping, has_shaping=torch.ones_like(state.has_shaping), done=rew.done
@@ -260,3 +369,35 @@ def landing_step(
     return state, LandingStepOut(
         obs=_observe(state, cfgs), reward=rew.reward, done=rew.done, solved=rew.solved
     )
+
+
+def _where_done(done: torch.Tensor, fresh: torch.Tensor, stepped: torch.Tensor) -> torch.Tensor:
+    return torch.where(done.reshape(done.shape + (1,) * (stepped.dim() - 1)), fresh, stepped)
+
+
+@torch.no_grad()
+def landing_step_autoreset(
+    state: LandingState,
+    visual_action: torch.Tensor,
+    cfgs: LandingConfigs,
+    ctrl_model: Any,
+    gen: Optional[torch.Generator] = None,
+    *,
+    noise: Optional[SensorNoise] = None,
+    reset_draws: Optional[ResetDraws] = None,
+    reset_noise: Optional[SensorNoise] = None,
+) -> tuple[LandingState, LandingStepOut]:
+    """Step; where the episode ends, start a fresh one (JAX
+    landing/env.py:235-253; the batched-RL convention in place of the
+    reference's reset inside the task, rl_worker.py:493). As `jax.vmap`
+    does, every env gets a fresh episode, from ``reset_draws`` and its
+    warm-up's ``reset_noise`` (drawn from ``gen`` after the step's noise
+    unless given), and a `torch.where` keeps it where done, so the step
+    never waits on the host. Reward, done and solved are the finished
+    episode's; the observation is the fresh one's where done."""
+    stepped, out = landing_step(state, visual_action, cfgs, ctrl_model, gen, noise=noise)
+    fresh, fresh_obs = landing_reset(gen, cfgs, ctrl_model, state.hist.shape[0],
+                                     draws=reset_draws, noise=reset_noise,
+                                     dtype=state.hist.dtype)
+    obs = LandingObs(*(_where_done(out.done, a, b) for a, b in zip(fresh_obs, out.obs)))
+    return hover.where_done(out.done, fresh, stepped), out._replace(obs=obs)

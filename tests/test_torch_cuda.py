@@ -635,3 +635,55 @@ def test_robust_train_step_launches_its_kernels(card, which):
     assert tuple(c.launches for c in counters) == want
     assert all(torch.isfinite(v).all() for v in metrics.values())
     assert any(not torch.equal(a, p) for a, p in zip(before, model.parameters()))
+
+
+# ---------------------------------------------------------------------------
+# The landing trainer: decision intervals as CUDA graphs, images from B5
+# ---------------------------------------------------------------------------
+
+
+def test_landing_train_step_through_graph_and_b5_matches_eager_plain(card, monkeypatch):
+    """One float32 landing train step at 16 envs x 4 decisions (K=2, two
+    minibatches an epoch) from the same model, draws and permutations:
+    once with each decision interval replayed from its CUDA graph and the
+    images from B5 (5 launches: the reset pool's batch and 4 decisions),
+    once eagerly with the plain renderer. B5 differs from the
+    plain renderer by up to 1e-4 on a few edge pixels, so: the metrics
+    within rtol 1e-3, and each parameter's change over the 4 Adam steps
+    within 2e-7 but for at most 1 in 1e3 elements (Adam's first step is
+    lr * sign(g): a near-zero gradient may flip)."""
+    import copy
+
+    from autonomous_quadrotor_environment_tpu_torch.fixtures import load_solved_controller
+    from autonomous_quadrotor_environment_tpu_torch.landing import env as lenv
+    from autonomous_quadrotor_environment_tpu_torch.landing import ppo as lppo
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfgs = lenv.LandingConfigs.default()
+    cfg = dataclasses.replace(PPOConfig.landing_variant(), k_epochs=2, minibatch_size=32)
+    ctrl = load_solved_controller()
+    model, opt, state = lppo.landing_ppo_init(0, cfgs, cfg, 16, ctrl)
+    gen = torch.Generator(device=card).manual_seed(1)
+    draws = lppo.draw_rollout(gen, cfgs, 16, 4, 2)
+    upd = lppo.draw_update(gen, lppo.update_plan(cfg, 64), 2)
+    base = copy.deepcopy(model)
+    runs = []
+    for graphed in (True, False):
+        m = copy.deepcopy(base)
+        o = ppo.make_optimizer(m, cfg)
+        st = dataclasses.replace(state, model=m, optimizer=o)
+        if not graphed:
+            monkeypatch.setattr(lenv, "interval", lenv._inner_interval)
+            monkeypatch.setattr(lenv, "render_nadir_batch", rk.render_nadir_batch_plain)
+        rk.render_nadir_batch.launches = 0
+        _, met = lppo.make_landing_train_step(m, o, cfgs, cfg, ctrl, 4)(st, draws, upd)
+        torch.cuda.synchronize()
+        runs.append((met, [p.detach() - q.detach() for p, q in zip(m.parameters(),
+                                                                     base.parameters())],
+                     rk.render_nadir_batch.launches))
+    (mg, dg, lg), (me, de, le) = runs
+    assert lg == 5 and le == 0
+    for k in mg:
+        torch.testing.assert_close(mg[k], me[k], rtol=1e-3, atol=0, msg=k)
+    flips = sum(int(((a - b).abs() > 2e-7).sum()) for a, b in zip(dg, de))
+    assert flips <= 1e-3 * sum(a.numel() for a in dg), flips

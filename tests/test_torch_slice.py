@@ -131,6 +131,7 @@ for name in ("agents.gae", "agents.ppo", "ops.ppo_fused", "ops.ppo_fused_t", "op
              "ops.render_kernel", "envs.sensors", "render.camera", "render.scene",
              "landing.reward", "landing.networks", "landing.env", "landing.ppo",
              "landing.oracle", "apps.eval_landing", "apps.train_control", "apps.robust_eval",
+             "apps.train_landing", "device",
              "core.randomization", "utils.checkpoint", "utils.metrics", "fixtures"):
     assert pkg.__name__ + "." + name in mods, name
 print("imported", len(mods))

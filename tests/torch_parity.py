@@ -365,3 +365,108 @@ def jax_landing_noise(state_keys, frames, primary=False):
     frame_keys, keys = jax_landing_frame_keys(state_keys, frames)
     normal, uniform = jax_sensor_draws(frame_keys, primary)
     return SensorNoise(t(normal), t(uniform)), keys
+
+
+def jax_landing_rollout_draws(state_keys, key, steps, reset_pool, dones, frames=10):
+    """The randomness of the JAX package's `landing_rollout` from ``key``
+    and the envs' state keys (B, 2), in the port's `RolloutDraws` form (CPU
+    tensors), walking JAX's key chains (landing/ppo.py:132-177): the reset
+    pool's keys split from ``key`` ((P, B) episodes, flattened slot-major)
+    and their warm-up frames; each decision's action noise, one (B, 3)
+    normal from that decision's key; each env's per-frame sensor keys; and
+    after each decision every env's key split in two, the first kept and
+    the second given to a pool episode where JAX's own ``dones`` (T, B)
+    say it ended. With ``reset_pool=0`` the second key resets the episode
+    instead (`landing_step_autoreset`), whose warm-up frames then run on.
+    Also returns the envs' keys after the rollout."""
+    import jax
+    import jax.numpy as jnp
+
+    from autonomous_quadrotor_environment_tpu_torch.landing.ppo import RolloutDraws
+    from autonomous_quadrotor_environment_tpu_torch.landing.env import ResetDraws
+    from autonomous_quadrotor_environment_tpu_torch.envs.sensors import SensorNoise
+
+    stack = lambda items, cls: cls(*(torch.stack(x) for x in zip(*items)))
+    state_keys = np.asarray(state_keys)
+    b = state_keys.shape[0]
+    dones = np.asarray(dones)
+    pool = pool_noise = reset = reset_noise = None
+    if reset_pool > 0:
+        k_pool, key = jax.random.split(key)
+        pool_keys = np.asarray(jax.random.split(k_pool, (reset_pool, b))).reshape(-1, 2)
+        pool, pool_state = jax_landing_reset_draws(pool_keys)
+        pool_noise, _ = jax_landing_noise(pool_state, frames)
+    keys = jax.random.split(key, steps)
+    eps = t(np.stack([np.asarray(jax.random.normal(k, (b, 3), jnp.float32)) for k in keys]))
+    noise, resets, warm = [], [], []
+    for step in range(steps):
+        nz, state_keys = jax_landing_noise(state_keys, frames)
+        noise.append(nz)
+        pair = np.asarray(_split_fn()(state_keys))
+        keep, other = pair[:, 0], pair[:, 1]
+        if reset_pool == 0:
+            draws, fresh = jax_landing_reset_draws(other)
+            wn, other = jax_landing_noise(fresh, frames)
+            resets.append(draws)
+            warm.append(wn)
+        state_keys = np.where(dones[step][:, None], other, keep)
+    if reset_pool == 0:
+        reset, reset_noise = stack(resets, ResetDraws), stack(warm, SensorNoise)
+    return RolloutDraws(pool, pool_noise, eps, stack(noise, SensorNoise), reset,
+                        reset_noise), state_keys
+
+
+def jax_landing_update_draws(key, plan, k_epochs):
+    """The permutations the JAX package's landing update draws from its key
+    (landing/ppo.py:317-352) for a port `UpdatePlan`, as a port
+    `UpdateDraws` of CPU tensors."""
+    import jax
+
+    from autonomous_quadrotor_environment_tpu_torch.landing.ppo import UpdateDraws
+
+    update_rows = None
+    if plan.reshuffle:
+        key, k_shuf = jax.random.split(key)
+        update_rows = t(jax.random.permutation(k_shuf, plan.n))
+    perms, epoch_rows = [], []
+    per = plan.mb // plan.block
+    for epoch_key in jax.random.split(key, k_epochs):
+        if plan.reshuffle_epoch:
+            k_perm, epoch_key = jax.random.split(epoch_key)
+            epoch_rows.append(t(jax.random.permutation(k_perm, plan.n)))
+        perm = np.asarray(jax.random.permutation(epoch_key, plan.n // plan.block))
+        perms.append(t(perm[: plan.n_mb * per].reshape(plan.n_mb, per)))
+    return UpdateDraws(None if plan.full_batch else torch.stack(perms), update_rows,
+                       torch.stack(epoch_rows) if epoch_rows else None)
+
+
+def jax_landing_init(seed, jcfgs, jppo_cfg, num_envs, conv_s2d, conv_dtype=None):
+    """The JAX package's `landing_ppo_init` with the shipped controller, its
+    model, optimizer and state, and the same envs in the port: the port's
+    `LandingState` and observation from JAX's reset draws and warm-up noise
+    (the port's own reset arithmetic, held to JAX's by
+    tests/test_torch_landing_step.py)."""
+    import jax
+    import jax.numpy as jnp
+
+    from autonomous_quadrotor_environment_tpu.fixtures import load_solved_controller as jload
+    from autonomous_quadrotor_environment_tpu.landing import ppo as jppo
+    from autonomous_quadrotor_environment_tpu_torch.fixtures import load_solved_controller
+    from autonomous_quadrotor_environment_tpu_torch.landing import env as tenv
+
+    cm, cp = jload()
+    key = jax.random.PRNGKey(seed)
+    jmodel, tx, jstate = jppo.landing_ppo_init(
+        key, jcfgs, jppo_cfg, num_envs, cm, cp, conv_s2d=conv_s2d,
+        conv_dtype=jnp.float32 if conv_dtype is None else conv_dtype)
+    _k_model, k_envs, _k_state = jax.random.split(key, 3)
+    draws, state_keys = jax_landing_reset_draws(jax.random.split(k_envs, num_envs))
+    noise, state_keys = jax_landing_noise(state_keys, jcfgs.landing.task_interval)
+    np.testing.assert_array_equal(np.asarray(jstate.env_states.key), state_keys)
+    ctrl = load_solved_controller(device="cpu")
+    tcfgs = tenv.LandingConfigs(*(type(tc)(**dataclasses.asdict(jc)) if k != "env"
+                                  else port_env_config(jc)
+                                  for k, jc, tc in zip(jcfgs._fields, jcfgs,
+                                                       tenv.LandingConfigs.default())))
+    states, obs = tenv.landing_reset(None, tcfgs, ctrl, draws=draws, noise=noise)
+    return (cm, cp, jmodel, tx, jstate), (ctrl, tcfgs, states, obs)
