@@ -18,6 +18,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..device import const
+
 # Leaf order of the flax param tree (ops/ppo_fused.py:_LEAVES in the JAX
 # package): params['params'][{actor,critic}][Dense_{0,1,2}][{kernel,bias}].
 LEAVES = [
@@ -85,8 +87,7 @@ class ActorCritic(nn.Module):
         value = self.critic(obs).squeeze(-1)
         if self.learn_std:
             return mean, value, self.log_std
-        log_std = torch.tensor(math.log(self.action_std), dtype=torch.float32, device=obs.device)
-        return mean, value, log_std
+        return mean, value, const(math.log(self.action_std), torch.float32, obs.device)
 
     def linears(self) -> list[nn.Linear]:
         """The six Dense layers in `LEAVES` order."""

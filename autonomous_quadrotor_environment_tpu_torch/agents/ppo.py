@@ -54,6 +54,7 @@ from ..envs import hover
 from ..ops import ppo_fused as pfr
 from ..ops import rollout_fused as rf
 from ..ops.ppo_fused_t import TILE_STEP, fused_ppo_grad_t
+from ..utils import graphs
 from .gae import gae_advantages
 from .networks import ActorCritic, DiagGaussian
 
@@ -194,31 +195,43 @@ def rollout_batch(
     )
     if env_cfg.randomization.enabled and gust_eps is None:
         gust_eps = torch.randn(steps, b, 3, generator=gen, device=dev)
-    env_idx = torch.arange(b, device=dev)
     slot = torch.zeros(b, dtype=torch.long, device=dev)
-    states, rows = env_states, []
-    for t in range(steps):
-        obs = states.hist
-        mean, value, log_std = model(obs)
-        dist = DiagGaussian(mean, log_std)
-        action = mean + dist.std * noise[t]
-        logprob = dist.log_prob(action)
-        eps_t = None if gust_eps is None else gust_eps[t]
-        if reset_pool > 0:
-            stepped, out = hover.step(states, action, env_cfg, gust_eps=eps_t)
-            states = hover.where_done(
-                out.done, hover.take_envs(fresh, (slot % reset_pool) * b + env_idx), stepped
-            )
-            slot = slot + out.done.long()
-        else:
-            states, out = hover.step_autoreset(
-                states, action, env_cfg, fresh=hover.take_envs(fresh, slice(t * b, (t + 1) * b)),
-                gust_eps=eps_t,
-            )
-        rows.append((obs, action, logprob, value, out.reward, out.done, out.solved))
+    if reset_pool > 0:
+        xs, consts = (noise, gust_eps), fresh
+    else:
+        per_step = graphs.tree_map(lambda x: x.reshape((steps, b) + x.shape[1:]), fresh)
+        xs, consts = (noise, gust_eps, per_step), None
+    (states, _), rows = graphs.scan(
+        ("rollout_batch", id(model), env_cfg, reset_pool),
+        lambda carry, i, x, pool: _rollout_step(model, env_cfg, reset_pool, carry, x, pool),
+        (env_states, slot), steps, xs=xs, consts=consts, params=list(model.parameters()),
+    )
     _, bootstrap, _ = model(states.hist)
-    roll = Rollout(*(torch.stack(field) for field in zip(*rows)))
-    return states, roll, bootstrap
+    return states, Rollout(*rows), bootstrap
+
+
+def _rollout_step(model: ActorCritic, env_cfg: EnvConfig, reset_pool: int, carry, x, pool):
+    """One step of `rollout_batch`: the policy's sample from the step's noise,
+    the env step and its replacement of finished episodes, from the fresh
+    episode of the step (``x[2]``) or of the env's pool cursor ``slot``."""
+    states, slot = carry
+    noise_t, eps_t = x[0], x[1]
+    b = noise_t.shape[0]
+    obs = states.hist
+    mean, value, log_std = model(obs)
+    dist = DiagGaussian(mean, log_std)
+    action = mean + dist.std * noise_t
+    logprob = dist.log_prob(action)
+    if reset_pool > 0:
+        stepped, out = hover.step(states, action, env_cfg, gust_eps=eps_t)
+        env_idx = torch.arange(b, device=obs.device)
+        states = hover.where_done(
+            out.done, hover.take_envs(pool, (slot % reset_pool) * b + env_idx), stepped
+        )
+        slot = slot + out.done.long()
+    else:
+        states, out = hover.step_autoreset(states, action, env_cfg, fresh=x[2], gust_eps=eps_t)
+    return (states, slot), (obs, action, logprob, value, out.reward, out.done, out.solved)
 
 
 # ---------------------------------------------------------------------------
@@ -769,6 +782,9 @@ def make_train_loop(
 # ---------------------------------------------------------------------------
 
 
+FLY_CHUNK = 64  # eval steps per graph replay, between checks that every episode ended
+
+
 @torch.no_grad()
 def _fly(model: ActorCritic, env_cfg: EnvConfig, max_steps: int, states: hover.EnvState,
          gen: Optional[torch.Generator], gust_eps: Optional[torch.Tensor]) -> dict:
@@ -776,46 +792,40 @@ def _fly(model: ActorCritic, env_cfg: EnvConfig, max_steps: int, states: hover.E
     for up to ``max_steps`` steps and return per-episode tensors: the
     records of `make_forensic_eval_fn`, of which `make_eval_fn` reports the
     means. Each step's gust draw is ``gust_eps[i]`` (max_steps, B, 3) or
-    drawn from ``gen``. The loop stops early once every episode has
-    finished, which changes nothing: finished episodes add nothing."""
-    settle_steps = max_steps // 5
+    drawn from ``gen`` before the chunk of steps it falls in, with
+    `hover.step`'s own call, in step order. The steps run in chunks of
+    FLY_CHUNK, each on the card one CUDA graph replay (`utils.graphs.scan`);
+    the loop stops before a chunk once every episode has finished, which
+    changes nothing: finished episodes add nothing."""
     b = states.x.shape[0]
     dev = states.x.device
-    finished = torch.zeros(b, dtype=torch.bool, device=dev)
-    solved = torch.zeros(b, dtype=torch.bool, device=dev)
-    reward_sum = torch.zeros(b, dtype=torch.float32, device=dev)
-    length = torch.zeros(b, dtype=torch.int32, device=dev)
-    v2_sum = torch.zeros(b, dtype=torch.float32, device=dev)
-    v2_n = torch.zeros(b, dtype=torch.float32, device=dev)
-    sat_steps = torch.zeros(b, dtype=torch.float32, device=dev)
-    peak_gust = torch.zeros(b, dtype=torch.float32, device=dev)
-    dom0 = states.dom
-    for i in range(max_steps):
-        if i % 64 == 63 and bool(finished.all()):
-            break
-        mean = model.actor_mean(states.hist)
-        active = ~finished
-        # The actor at its authority limit: the tanh head and the motor
-        # model both saturate at |a| = 1.
-        sat_steps = sat_steps + (torch.any(mean.abs() > 0.99, dim=-1) & active).float()
-        states, out = hover.step(states, mean, env_cfg,
-                                 gust_eps=None if gust_eps is None else gust_eps[i], gen=gen)
-        peak_gust = torch.maximum(
-            peak_gust, torch.linalg.vector_norm(states.dom.gust_next, dim=-1) * active)
-        reward_sum = reward_sum + out.reward * active
-        solved = solved | (out.solved & active)
-        length = length + active.to(torch.int32)
-        late = active & (i >= settle_steps)
-        vel2 = ((states.x[:, 1:6:2] - states.vel_target) ** 2).sum(-1)
-        v2_sum = v2_sum + vel2 * late
-        v2_n = v2_n + late.float()
-        finished = finished | out.done
+    zeros = lambda dtype: torch.zeros(b, dtype=dtype, device=dev)
+    f32 = torch.float32
+    # finished, solved, reward, length, v2_sum, v2_n, saturated steps, peak gust
+    acc = (zeros(torch.bool), zeros(torch.bool), zeros(f32), zeros(torch.int32),
+           zeros(f32), zeros(f32), zeros(f32), zeros(f32))
+    xs = gust_eps
+    if env_cfg.randomization.enabled and gust_eps is None:
+        if gen is None:
+            raise ValueError("a randomized eval needs gust_eps or a generator to draw it from")
+
+        def xs(i0, n):
+            return torch.stack([torch.randn(b, 3, generator=gen, dtype=states.x.dtype,
+                                            device=gen.device) for _ in range(n)])
+    (_, acc), _ = graphs.scan(
+        ("fly", id(model), env_cfg, max_steps),
+        lambda carry, i, eps, _: (_fly_step(model, env_cfg, max_steps // 5, carry, i, eps), None),
+        (states, acc), max_steps, xs=xs, chunk=FLY_CHUNK, params=list(model.parameters()),
+        stop=lambda carry: bool(carry[1][0].all()),
+    )
+    _, solved, reward_sum, length, v2_sum, v2_n, sat_steps, peak_gust = acc
     rms_vel = torch.sqrt(v2_sum / torch.clamp(v2_n, min=1.0))
     # The env's step counter starts at `warmup` after reset, so its timeout
     # fires after max_steps - warmup active steps (the JAX package's
     # round-5 survival cut).
     survived = solved | (length >= max_steps - env_cfg.warmup)
     station = survived & (rms_vel < 0.5)
+    dom0 = states.dom
     return {
         "severity": dom0.gust_scale,
         "mass_factor": dom0.mass_factor,
@@ -829,6 +839,29 @@ def _fly(model: ActorCritic, env_cfg: EnvConfig, max_steps: int, states: hover.E
         "reward": reward_sum,
         "sat_frac": sat_steps / torch.clamp(length.float(), min=1.0),
     }
+
+
+def _fly_step(model: ActorCritic, env_cfg: EnvConfig, settle_steps: int, carry, i, eps):
+    """One step of `_fly` at step index ``i`` (a 0-d tensor) with the gust
+    draw ``eps`` (None when calm)."""
+    states, (finished, solved, reward_sum, length, v2_sum, v2_n, sat_steps, peak_gust) = carry
+    mean = model.actor_mean(states.hist)
+    active = ~finished
+    # The actor at its authority limit: the tanh head and the motor model
+    # both saturate at |a| = 1.
+    sat_steps = sat_steps + (torch.any(mean.abs() > 0.99, dim=-1) & active).float()
+    states, out = hover.step(states, mean, env_cfg, gust_eps=eps)
+    peak_gust = torch.maximum(
+        peak_gust, torch.linalg.vector_norm(states.dom.gust_next, dim=-1) * active)
+    reward_sum = reward_sum + out.reward * active
+    solved = solved | (out.solved & active)
+    length = length + active.to(torch.int32)
+    late = active & (i >= settle_steps)
+    vel2 = ((states.x[:, 1:6:2] - states.vel_target) ** 2).sum(-1)
+    v2_sum = v2_sum + vel2 * late
+    v2_n = v2_n + late.float()
+    finished = finished | out.done
+    return states, (finished, solved, reward_sum, length, v2_sum, v2_n, sat_steps, peak_gust)
 
 
 def make_eval_fn(model: ActorCritic, env_cfg: EnvConfig, episodes: int,

@@ -69,8 +69,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--solved-threshold", type=float, default=0.95)
     p.add_argument("--resume-from", type=str, default=None, metavar="CKPT",
                    help="warm-start params from a .msgpack checkpoint")
-    p.add_argument("--polish", action="store_true",
-                   help="the classical same-start acceptance gate")
+    p.add_argument(
+        "--polish", action="store_true",
+        help="acceptance gate for matching the reference's committed RL same-start log: at "
+        "each eval also fly the 20 reference-seeded classical start states and stop only "
+        "when that leg is 20/20 AND the eval solved rate holds 100%% AND an eval from an "
+        "independent stream confirms >=95%%. Combine with --resume-from and a few hundred "
+        "--updates.",
+    )
     p.add_argument("--device", type=str, default=None,
                    help="torch device; the CUDA card when omitted")
     return p
@@ -83,15 +89,11 @@ def stream(seed: int, *tags: int) -> int:
 
 
 _STAGE, _EVAL = 1, 2  # stream tags
+_CONFIRM = 10**6  # the polish gate's confirming evals: stream (seed, _EVAL, _CONFIRM + i)
 
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
-    if args.polish:
-        raise NotImplementedError(
-            "--polish flies the classical same-start leg, which is not ported yet "
-            "(classical_compare, ROADMAP A14)"
-        )
     if args.dp > 0:
         raise NotImplementedError("--dp is not ported yet (ROADMAP A16)")
     device = resolve_device(args.device)
@@ -148,6 +150,20 @@ def main(argv=None) -> dict:
     eval_fn = make_eval_fn(model, env_cfg, episodes=args.eval_episodes)
     stage_i = 0
     train_step, train_loop = build(stage_env_cfg(severities[0]))
+
+    # --polish: the 20 reference-seeded classical start states, flown with
+    # the deterministic actor and scored by the reference analyzer's success
+    # criterion (classical_compare); checked at every eval.
+    polish = {}
+    if args.polish:
+        from .classical_compare import analyze, leg_env, make_rl_runner, reference_start_states
+
+        polish_cfg = leg_env("rl")
+        polish_starts = reference_start_states()
+        rl_runner = make_rl_runner(polish_cfg, model)
+
+        def polish_runner() -> float:
+            return analyze(rl_runner(polish_starts), polish_cfg)["success_rate"]
 
     tag = f"{args.size}_{args.seed}"
     csv_log = CSVLogger(f"{args.out}/log_{tag}.csv", TRAIN_LOG_HEADER)
@@ -215,13 +231,29 @@ def main(argv=None) -> dict:
             solved_metric = (
                 last_eval["eval_station_keeping"] if args.robust else last_eval["eval_solved"]
             )
-            if stage_i == len(severities) - 1 and solved_metric >= args.solved_threshold:
+            if args.polish:
+                # Polish acceptance: 20/20 on the reference's same-start
+                # classical leg AND 100% eval AND a confirming eval from an
+                # independent stream >= 95% (against a lucky eval batch).
+                classical = polish["classical"] = polish_runner()
+                print(f"  polish: classical leg {classical:.0%}")
+                if classical >= 1.0 and last_eval["eval_solved"] >= 1.0:
+                    gen = torch.Generator(device=device).manual_seed(
+                        stream(args.seed, _EVAL, _CONFIRM + i))
+                    confirm = float(eval_fn(gen)["eval_solved"])
+                    print(f"  polish: independent confirm {confirm:.1%}")
+                    if confirm >= 0.95:
+                        save_params(f"{args.out}/solved/nn_solved_{tag}.msgpack", to_flax(model))
+                        print("########## Polished: classical 20/20 + eval 100% ##########")
+                        break
+            elif stage_i == len(severities) - 1 and solved_metric >= args.solved_threshold:
                 save_params(f"{args.out}/solved/nn_solved_{tag}.msgpack", to_flax(model))
                 print("########## Solved! ##########")
                 break
 
     save_params(f"{args.out}/nn_final_{tag}.msgpack", to_flax(model))
-    return {"final_eval": last_eval, "total_steps": total_steps, "wall_s": time.time() - t0}
+    return {"final_eval": last_eval, "total_steps": total_steps, "wall_s": time.time() - t0,
+            **{f"polish_{k}": v for k, v in polish.items()}}
 
 
 if __name__ == "__main__":

@@ -42,6 +42,7 @@ from ..envs.sensors import (
     sensor_reset,
 )
 from ..ops.render_kernel import render_nadir_batch
+from ..utils import graphs
 from .reward import visual_reward
 
 
@@ -176,105 +177,24 @@ def _inner_interval(
     )
 
 
-def _leaves(tree) -> list:
-    """The tensors of a tree of dataclasses and NamedTuples, in field order."""
-    if isinstance(tree, torch.Tensor):
-        return [tree]
-    if dataclasses.is_dataclass(tree):
-        tree = [getattr(tree, f.name) for f in dataclasses.fields(tree)]
-    return [leaf for node in tree for leaf in _leaves(node)]
-
-
-def _rebuild(tree, leaves):
-    """``tree`` with its tensors replaced, in `_leaves` order, from the
-    iterator ``leaves``."""
-    if isinstance(tree, torch.Tensor):
-        return next(leaves)
-    if dataclasses.is_dataclass(tree):
-        return type(tree)(**{f.name: _rebuild(getattr(tree, f.name), leaves)
-                             for f in dataclasses.fields(tree)})
-    nodes = [_rebuild(node, leaves) for node in tree]
-    return type(tree)(*nodes) if hasattr(tree, "_fields") else type(tree)(nodes)
-
-
-class IntervalGraph:
-    """`_inner_interval` as one CUDA graph at one batch size, dtype and
-    device, for one controller and config: the interval's thousands of small
-    launches become one replay.
-
-    It is captured on first use: the inputs are copied into static buffers,
-    the interval runs twice eagerly on a side stream (cuBLAS and the cached
-    constants settle), then once under capture into the memory pool that
-    every interval graph shares. Each call copies the state and the
-    eagerly drawn sensor noise into the static inputs, replays, and clones
-    the outputs, so that what the caller keeps never aliases a buffer the
-    next replay overwrites. Launches of the counted kernels made during
-    capture are taken back from their counters and added on every replay;
-    the interval itself holds none (B5 renders after it)."""
-
-    COUNTED = (render_nadir_batch,)
-    _pool = None
-
-    def __init__(self, state: LandingState, cfgs: LandingConfigs, ctrl_model: Any,
-                 noise: SensorNoise):
-        self.cfgs, self.ctrl_model = cfgs, ctrl_model
-        args = (state.env, state.sens, state.hist, state.crtl_action, state.vel_error, noise)
-        self.inputs = [x.clone() for x in _leaves(args)]
-        self.static_args = _rebuild(args, iter(self.inputs))
-        device = state.hist.device
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            for _ in range(2):
-                self._run()
-        torch.cuda.current_stream(device).wait_stream(side)
-        if IntervalGraph._pool is None:
-            IntervalGraph._pool = torch.cuda.graph_pool_handle()
-        self.graph = torch.cuda.CUDAGraph()
-        before = [fn.launches for fn in self.COUNTED]
-        with torch.cuda.graph(self.graph, pool=IntervalGraph._pool, stream=side):
-            self.outputs = self._run()
-        self.captured = [fn.launches - b for fn, b in zip(self.COUNTED, before)]
-        for fn, b in zip(self.COUNTED, before):
-            fn.launches = b
-
-    def _run(self):
-        return _leaves(_frames(*self.static_args, self.cfgs, self.ctrl_model))
-
-    def __call__(self, state: LandingState, noise: SensorNoise) -> LandingState:
-        args = (state.env, state.sens, state.hist, state.crtl_action, state.vel_error, noise)
-        for dst, src in zip(self.inputs, _leaves(args)):
-            dst.copy_(src)
-        self.graph.replay()
-        for fn, n in zip(self.COUNTED, self.captured):
-            fn.launches += n
-        out = [x.clone() for x in self.outputs]
-        env_s, sens_s, hist, crtl_action = _rebuild(
-            (state.env, state.sens, state.hist, state.crtl_action), iter(out))
-        return state.replace(
-            env=env_s, sens=sens_s, hist=hist, crtl_action=crtl_action,
-            internal_frame=state.internal_frame + self.cfgs.landing.task_interval,
-        )
-
-
-_GRAPHS: dict = {}
-
-
 def interval(state: LandingState, cfgs: LandingConfigs, ctrl_model: Any,
              noise: SensorNoise) -> LandingState:
-    """The decision interval: on the card, the replay of the `IntervalGraph`
-    of this batch size, dtype, device, controller and config (captured on
-    first use; a failed capture raises); on the CPU, `_inner_interval`."""
-    hist = state.hist
-    if hist.device.type != "cuda":
+    """The decision interval: on the card, the replay of its CUDA graph at
+    this batch size, dtype and device, for this controller and config
+    (`utils.graphs.run`: captured on first use, a failed capture raises); on
+    the CPU, `_inner_interval`."""
+    if state.hist.device.type != "cuda":
         return _inner_interval(state, cfgs, ctrl_model, noise)
-    # The graph holds the controller, so its id is not reused while the
-    # entry lives.
-    key = (hist.shape[0], hist.dtype, hist.device, cfgs, id(ctrl_model))
-    graph = _GRAPHS.get(key)
-    if graph is None:
-        graph = _GRAPHS[key] = IntervalGraph(state, cfgs, ctrl_model, noise)
-    return graph(state, noise)
+    env_s, sens_s, hist, crtl_action = graphs.run(
+        ("landing_interval", cfgs, id(ctrl_model)),
+        lambda *a: _frames(*a, cfgs, ctrl_model),
+        (state.env, state.sens, state.hist, state.crtl_action, state.vel_error, noise),
+        params=list(ctrl_model.parameters()),
+    )
+    return state.replace(
+        env=env_s, sens=sens_s, hist=hist, crtl_action=crtl_action,
+        internal_frame=state.internal_frame + cfgs.landing.task_interval,
+    )
 
 
 def _observe(state: LandingState, cfgs: LandingConfigs) -> LandingObs:

@@ -687,3 +687,96 @@ def test_landing_train_step_through_graph_and_b5_matches_eager_plain(card, monke
         torch.testing.assert_close(mg[k], me[k], rtol=1e-3, atol=0, msg=k)
     flips = sum(int(((a - b).abs() > 2e-7).sum()) for a, b in zip(dg, de))
     assert flips <= 1e-3 * sum(a.numel() for a in dg), flips
+
+
+# ---------------------------------------------------------------------------
+# The controller's step loops as CUDA graphs (utils/graphs.py)
+# ---------------------------------------------------------------------------
+
+
+def _same(a, b) -> bool:
+    from autonomous_quadrotor_environment_tpu_torch.utils import graphs
+
+    la, lb = graphs.leaves(a), graphs.leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+@pytest.mark.parametrize("robust", [False, True])
+@pytest.mark.parametrize("reset_pool", [0, 2])
+def test_rollout_graph_is_bit_equal_to_eager(card, robust, reset_pool):
+    """`rollout_batch` at 64 envs x 16 steps (bounding box 0.15, so episodes
+    end and are replaced) replayed from its graph and run eagerly, from
+    generators with the same seed: every output equal to the bit."""
+    from autonomous_quadrotor_environment_tpu_torch.utils import graphs
+
+    cfg = EnvConfig(bb_scale=0.15, randomization=RandomizationConfig(enabled=robust))
+    tcfg = TrainConfig(num_envs=64, rollout_steps=16, network_size=32)
+    model, _, state = ppo.ppo_init(3, cfg, PPOConfig(), tcfg, device=card)
+
+    def roll():
+        gen = torch.Generator(device=card).manual_seed(5)
+        return ppo.rollout_batch(model, state.env_states, gen, cfg, 16, reset_pool)
+
+    got, again = roll(), roll()
+    with graphs.eager():
+        want = roll()
+    assert int(want[1].dones.sum()) > 0
+    assert _same(got, want) and _same(again, want)
+
+
+@pytest.mark.parametrize("robust", [False, True])
+def test_fly_graph_is_bit_equal_to_eager(card, robust):
+    """The forensic eval (`_fly`) of 32 episodes x 150 steps (three 64-step
+    chunks, the last one short) through its graphs and eagerly, the gusts
+    drawn from the same generator: every record equal to the bit."""
+    from autonomous_quadrotor_environment_tpu_torch.utils import graphs
+
+    cfg = EnvConfig(n_steps=145, randomization=RandomizationConfig(enabled=robust))
+    torch.manual_seed(0)
+    model = ActorCritic(hidden=32).to(card)
+    fly = ppo.make_forensic_eval_fn(model, cfg, 32)
+    got = fly(torch.Generator(device=card).manual_seed(2))
+    with graphs.eager():
+        want = fly(torch.Generator(device=card).manual_seed(2))
+    assert _same(got, want)
+
+
+def test_a_replaced_parameter_makes_the_graph_raise(card):
+    """A graph reads the model's weights in place: an in-place update is
+    seen by the next replay, a parameter replaced by another tensor
+    raises."""
+    cfg = EnvConfig()
+    torch.manual_seed(0)
+    model = ActorCritic(hidden=32).to(card)
+    fly = ppo.make_eval_fn(model, cfg, 8, max_steps=64)
+    gen = lambda: torch.Generator(device=card).manual_seed(1)
+    first = fly(gen())["eval_reward"]
+    with torch.no_grad():
+        model.actor[0].weight.mul_(0.5)
+    assert fly(gen())["eval_reward"] != first
+    model.actor[0].weight.data = model.actor[0].weight.data.clone()
+    with pytest.raises(RuntimeError, match="replaced"):
+        fly(gen())
+
+
+def test_mission_chunk_replay_equals_its_eager_steps(card):
+    """The RL and PID mission runners on the 14 target-table episodes for
+    250 steps (two 100-step graphs and a 50-step one), the RL one on the
+    fused sensor estimate, replayed and eagerly: logs equal to the bit."""
+    from autonomous_quadrotor_environment_tpu_torch.apps import missions_eval as me
+    from autonomous_quadrotor_environment_tpu_torch.config import SensorConfig
+    from autonomous_quadrotor_environment_tpu_torch.fixtures import load_solved_controller
+    from autonomous_quadrotor_environment_tpu_torch.utils import graphs
+
+    steps = 250
+    traj = me.episode_trajectories(0.01, card)
+    draws = me.draw_sensors(0, traj.positions.shape[0], steps, card)
+    rl = me.make_rl_mission_runner(EnvConfig(n_steps=steps, training=False),
+                                   load_solved_controller(), SensorConfig(), True, steps)
+    pid = me.make_pid_mission_runner(
+        EnvConfig(n_steps=steps, direct_control=False, training=False), steps, card)
+    got = (rl(traj, draws), pid(traj))
+    with graphs.eager():
+        want = (rl(traj, draws), pid(traj))
+    for g, w in zip(got, want):
+        assert (g == w).all()

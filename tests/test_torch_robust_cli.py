@@ -2,8 +2,8 @@
 cross-eval CLI against the JAX package's, on the CPU: checkpoints read both
 ways and byte-equal where flax writes the same tree; the CSV log's header
 and resume; `train_control --inner 3` equal to `--inner 1`; a robust
-curriculum run writing the files the JAX package's writes; `--polish` and
-`--dp` refused with the ROADMAP items that will port them; `robust_eval
+curriculum run writing the files the JAX package's writes; `--dp` refused
+with the ROADMAP item that will port it; `robust_eval
 --forensic` writing the JAX package's keys; the shipped robust fixture."""
 
 import csv
@@ -161,7 +161,7 @@ def test_robust_curriculum_run_writes_what_jax_writes(tmp_path, monkeypatch):
                                  ).hidden == 16
 
 
-@pytest.mark.parametrize("flag,item", [("--polish", "A14"), ("--dp=2", "A16")])
+@pytest.mark.parametrize("flag,item", [("--dp=2", "A16")])
 def test_train_control_refuses_what_is_not_ported(flag, item, tmp_path):
     with pytest.raises(NotImplementedError, match=item):
         train_control.main(SMALL + [flag, "--out", str(tmp_path)])

@@ -470,3 +470,31 @@ def jax_landing_init(seed, jcfgs, jppo_cfg, num_envs, conv_s2d, conv_dtype=None)
                                                        tenv.LandingConfigs.default())))
     states, obs = tenv.landing_reset(None, tcfgs, ctrl, draws=draws, noise=noise)
     return (cm, cp, jmodel, tx, jstate), (ctrl, tcfgs, states, obs)
+
+
+def jax_mission_sensor_draws(seed, episodes, steps):
+    """The sensor draws of the JAX package's `missions_eval --sensors` run
+    at ``seed`` (apps/missions_eval.py:188-213), in the port's
+    `missions_eval.SensorDraws` form (CPU tensors): each episode's key
+    ``fold_in(PRNGKey(seed), ep)`` gives `sensor_reset` its three drift
+    uniforms from a 3-way split, then each step splits the carried key in
+    two and `sensor_fused` draws from the second half (``jax_sensor_draws``),
+    leading axes (steps, episodes)."""
+    import jax
+    import jax.numpy as jnp
+
+    from autonomous_quadrotor_environment_tpu_torch.apps.missions_eval import SensorDraws
+    from autonomous_quadrotor_environment_tpu_torch.envs.sensors import SensorNoise
+
+    keys = jnp.stack([jax.random.fold_in(jax.random.PRNGKey(seed), ep)
+                      for ep in range(episodes)])
+    drift = jax.vmap(lambda k: jnp.stack([jax.random.uniform(s, (), jnp.float32)
+                                          for s in jax.random.split(k, 3)]))(keys)
+
+    def walk(k, _):
+        k, k_s = jax.random.split(k)
+        return k, k_s
+
+    _, step_keys = jax.vmap(lambda k: jax.lax.scan(walk, k, None, length=steps))(keys)
+    normal, uniform = jax_sensor_draws(np.asarray(step_keys).transpose(1, 0, 2))
+    return SensorDraws(t(drift), SensorNoise(t(normal), t(uniform)))
