@@ -58,6 +58,7 @@ from ..core.randomization import zeros_domain
 from ..device import resolve_device
 from ..envs import hover
 from ..utils import graphs
+from ..utils.cache import enable_compilation_cache
 from .robust_eval import load_policy
 
 N_EPISODES = 20
@@ -289,6 +290,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> dict:
+    enable_compilation_cache()
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
     legs = (

@@ -26,6 +26,7 @@ from ..landing.env import LandingConfigs
 from ..landing.networks import LandingActorCritic
 from ..landing.oracle import oracle_landing_eval
 from ..landing.ppo import make_landing_eval_fn
+from ..utils.cache import enable_compilation_cache
 from ..utils.checkpoint import load_params
 
 
@@ -56,6 +57,7 @@ def load_controller(path: str, size: int, device) -> ActorCritic:
 
 
 def main(argv=None) -> dict:
+    enable_compilation_cache()
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
     # float32 means float32: cuDNN would run the convs in TF32 by default.

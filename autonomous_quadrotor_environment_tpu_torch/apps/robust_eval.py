@@ -34,6 +34,7 @@ from ..agents.ppo import make_eval_fn, make_forensic_eval_fn
 from ..config import EnvConfig, RandomizationConfig
 from ..device import resolve_device
 from ..utils import load_params
+from ..utils.cache import enable_compilation_cache
 
 
 def build_parser():
@@ -103,6 +104,7 @@ def load_policy(path: str, size: int, device) -> ActorCritic:
 
 
 def main(argv=None) -> dict:
+    enable_compilation_cache()
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
     policies = {"nominal": load_policy(args.nominal, args.size, device)}

@@ -27,6 +27,7 @@ from ..device import resolve_device
 from ..envs import hover
 from ..envs.featurizer import feat_size, push_hist
 from ..utils import graphs
+from ..utils.cache import enable_compilation_cache
 from .robust_eval import load_policy
 
 CHUNK = 100  # steps per graph replay on the card
@@ -108,6 +109,7 @@ def build_parser():
 
 
 def main(argv=None) -> dict:
+    enable_compilation_cache()
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
     env_cfg = EnvConfig(n_steps=args.steps, training=False)

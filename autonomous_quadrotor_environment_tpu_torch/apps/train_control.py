@@ -28,6 +28,7 @@ from ..config import EnvConfig, PPOConfig, RandomizationConfig, TrainConfig
 from ..device import resolve_device
 from ..envs import hover
 from ..utils import TRAIN_LOG_HEADER, CSVLogger, JSONLLogger, load_params, save_params
+from ..utils.cache import enable_compilation_cache
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -93,6 +94,7 @@ _CONFIRM = 10**6  # the polish gate's confirming evals: stream (seed, _EVAL, _CO
 
 
 def main(argv=None) -> dict:
+    enable_compilation_cache()
     args = build_parser().parse_args(argv)
     if args.dp > 0:
         raise NotImplementedError("--dp is not ported yet (ROADMAP A16)")

@@ -47,6 +47,7 @@ from ..landing.ppo import (
     make_landing_train_step,
 )
 from ..utils import JSONLLogger, load_params, save_params
+from ..utils.cache import enable_compilation_cache
 from .eval_landing import load_controller
 
 CONV_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
@@ -115,6 +116,7 @@ def _resume(model: LandingActorCritic, path: str, conv_s2d: bool) -> None:
 
 
 def main(argv=None) -> dict:
+    enable_compilation_cache()
     args = build_parser().parse_args(argv)
     if args.dp > 0:
         raise NotImplementedError(

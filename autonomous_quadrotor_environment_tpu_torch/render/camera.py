@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..config import CameraConfig
+from ..device import const
 
 
 class CameraModel(NamedTuple):
@@ -53,9 +54,7 @@ def make_camera(cfg: CameraConfig | None = None) -> CameraModel:
 def nadir_rotation(dtype=torch.float32, device=None) -> torch.Tensor:
     """World->camera rotation of the fixed nadir camera: pi about world x
     (camera x = world x, camera y = -world y, camera z = -world z)."""
-    return torch.tensor(
-        [[1.0, 0.0, 0.0], [0.0, -1.0, 0.0], [0.0, 0.0, -1.0]], dtype=dtype, device=device
-    )
+    return const(((1.0, 0.0, 0.0), (0.0, -1.0, 0.0), (0.0, 0.0, -1.0)), dtype, device)
 
 
 def project_points(
@@ -80,8 +79,8 @@ def pixel_rays(cam: CameraModel, dtype=torch.float32, device=None) -> torch.Tens
     vv, uu = torch.meshgrid(v, u, indexing="ij")  # (H, W)
     # Tensor divisors: a Python-scalar divisor becomes a reciprocal multiply
     # on CUDA, which rounds differently from the kernel's division.
-    fx = torch.tensor(cam.fx, dtype=dtype, device=device)
-    fy = torch.tensor(cam.fy, dtype=dtype, device=device)
+    fx = const(cam.fx, dtype, device)
+    fy = const(cam.fy, dtype, device)
     x = (uu - cam.cx) / fx
     y = (vv - cam.cy) / fy
     return torch.stack([x, y, torch.ones_like(x)], dim=-1)

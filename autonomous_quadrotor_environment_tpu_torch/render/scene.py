@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from ..config import MarkerConfig
+from ..device import const
 from .camera import CameraModel, nadir_rotation, pixel_rays
 
 GROUND_RGB = (0.35, 0.42, 0.32)   # muted greenish ground
@@ -30,7 +31,7 @@ def _smooth_square_wave(x: torch.Tensor, half_period: float, soft: torch.Tensor)
     the distance to the nearest cell edge through a linear smooth step of
     width ``soft``. The cell parity is a floor-mod (`torch.remainder`, as
     `jnp.mod`): `fmod` gives -1 on negative cells."""
-    t = x / torch.tensor(half_period, dtype=x.dtype, device=x.device)
+    t = x / const(half_period, x.dtype, x.device)
     cell = torch.floor(t)
     parity = torch.remainder(cell, 2.0)
     frac = t - cell
@@ -61,7 +62,7 @@ def checkerboard_color(
     on_board = inside(half_w, x) * inside(half_h, y)
     coverage = inside(half_w + border, x) * inside(half_h + border, y)
 
-    border_rgb = torch.tensor(BORDER_RGB, dtype=val.dtype, device=val.device)
+    border_rgb = const(BORDER_RGB, val.dtype, val.device)
     rgb = val[..., None] * on_board[..., None] + border_rgb * (1.0 - on_board[..., None])
     return rgb, coverage
 
@@ -69,7 +70,7 @@ def checkerboard_color(
 def shade_ground(xy: torch.Tensor) -> torch.Tensor:
     """Procedural ground shading (..., 3): base color with a soft
     low-frequency variation."""
-    g = torch.tensor(GROUND_RGB, dtype=xy.dtype, device=xy.device)
+    g = const(GROUND_RGB, xy.dtype, xy.device)
     wave = (
         0.06 * torch.sin(xy[..., 0] * 1.7) * torch.cos(xy[..., 1] * 1.3)
         + 0.04 * torch.sin(xy[..., 0] * 5.1 + xy[..., 1] * 3.7)
@@ -102,12 +103,12 @@ def render_pinhole(
     valid = (t > 0.0) & (dz < 0.0)
     hit = cam_pos_w[:, None, None, :] + t[..., None] * dirs_w
     xy = hit[..., 0:2]
-    footprint = torch.abs(t) / torch.tensor(cam.fx, dtype=dtype, device=device)
+    footprint = torch.abs(t) / const(cam.fx, dtype, device)
 
     rel = xy - marker_xy.to(dtype)[:, None, None, :]
     marker_rgb, cover = checkerboard_color(rel, footprint, marker)
     rgb = marker_rgb * cover[..., None] + shade_ground(xy) * (1.0 - cover[..., None])
-    sky = torch.tensor(SKY_RGB, dtype=dtype, device=device)
+    sky = const(SKY_RGB, dtype, device)
     rgb = torch.where(valid[..., None], rgb, sky)
     if isinstance(brightness, torch.Tensor):
         brightness = brightness.to(dtype).reshape(-1, 1, 1, 1)

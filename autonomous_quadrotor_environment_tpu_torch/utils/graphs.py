@@ -163,43 +163,57 @@ def _stack(ys: list):
 
 def scan(key, body: Callable, carry, length: int, *, xs=None, consts=None,
          chunk: Optional[int] = None, params=(),
-         stop: Optional[Callable[[Any], bool]] = None):
-    """``for i in range(length): carry, y = body(carry, i, x_i, consts)``,
-    returning the final carry and the ``y`` stacked along a new first axis.
+         stop: Optional[Callable[[Any], bool]] = None, period: Optional[int] = None,
+         start: int = 0):
+    """``for i in range(start, start + length): carry, y = body(carry, i,
+    x_i, consts)``, returning the final carry and the ``y`` stacked along a
+    new first axis.
 
     ``i`` is a 0-d int64 tensor on the carry's device. ``xs`` is a tree
-    whose first axis is the step, or a function ``xs(i0, n)`` that draws the
-    inputs of steps i0..i0+n-1 eagerly (in the order an eager loop would
-    draw them); ``consts`` are inputs that every step reads. The steps run
-    in chunks of ``chunk`` (all of them when None), each chunk one `run` of
-    ``key`` at its length; before each chunk but the first, ``stop(carry)``
-    may end the loop early (the stacked ``y`` then covers the steps run)."""
+    whose first axis is the step counted from ``start``, or a function
+    ``xs(i0, n)`` that draws the inputs of steps i0..i0+n-1 eagerly (in the
+    order an eager loop would draw them); ``consts`` are inputs that every
+    step reads. The steps run in chunks of ``chunk`` (all of them when
+    None), each chunk one `run` of ``key`` at its length; before each chunk
+    but the first, ``stop(carry)`` may end the loop early (the stacked ``y``
+    then covers the steps run).
+
+    With ``period``, each step also gets its phase ``i % period`` as a
+    Python int, ``body(carry, i, x_i, consts, phase)``, so that work due
+    only on some steps is left out of the others' graph nodes: a chunk's
+    graph is keyed by its first step's phase as well (one graph when
+    ``period`` divides ``chunk``)."""
     chunk = chunk or length
     device = leaves(carry)[0].device
 
-    def steps(n):
+    def steps(n, p0):
         def fn(carry, i0, x, consts):
             ys = []
             for k in range(n):
                 xk = None if x is None else tree_map(lambda a: a[k], x)
-                carry, y = body(carry, i0 + k, xk, consts)
+                if period is None:
+                    carry, y = body(carry, i0 + k, xk, consts)
+                else:
+                    carry, y = body(carry, i0 + k, xk, consts, (p0 + k) % period)
                 ys.append(y)
             return carry, _stack(ys)
         return fn
 
-    outs, i = [], 0
-    while i < length:
-        if i and stop is not None and stop(carry):
+    outs, i, end = [], start, start + length
+    while i < end:
+        if i > start and stop is not None and stop(carry):
             break
-        n = min(chunk, length - i)
+        n = min(chunk, end - i)
         if xs is None:
             x = None
         elif callable(xs):
             x = xs(i, n)
         else:
-            x = tree_map(lambda a: a[i:i + n], xs)
+            x = tree_map(lambda a: a[i - start:i - start + n], xs)
         i0 = torch.full((), i, dtype=torch.int64, device=device)
-        carry, ys = run((key, n), steps(n), (carry, i0, x, consts), params)
+        p0 = None if period is None else i % period
+        carry, ys = run((key, n) if period is None else (key, n, p0), steps(n, p0),
+                        (carry, i0, x, consts), params)
         outs.append(ys)
         i += n
     if not outs or outs[0] is None:

@@ -136,10 +136,25 @@ It imports nothing of JAX. Each phase prints one flushed JSON line:
 24. polish: `apps.train_control.main --polish --resume-from` the solved
    fixture for 2 updates at lr 0: the polish runner's classical rate after
    each train step equals the classical phase's RL leg.
+25. vision: `vision.vision_pose` (no kernel of its own) with the missions'
+   camera (480 x 480, body-attached) at 64 poses as one batch, held to the
+   port on the CPU and to the JAX package's CPU outputs (`VISION_REF`,
+   printed by `python scripts/vision_reference.py`): ok flags equal, and
+   where ok the position within 1e-3 m, the quaternion within 1e-3, the
+   rms within 1e-2 px; the ms of a batched call at E=14 and E=64, eager and
+   as a graph replay; a 200-step hybrid mission (14 episodes) from its CUDA
+   graphs and eagerly, bit-equal. The missions phase (22) also flies
+   --vision at seeds 0, 1 and 2, held as --sensors is.
+26. apps: the native preview built with g++; `replay` frames;
+   `live_mission` switching modes headless; `manual_flight --script` for 3
+   episodes with B5's launches equal to its decisions plus resets;
+   `watch --once` over a `train_control` JSONL; `forward_bench`'s rows with
+   the card's name and power limit.
 
 The step loops of the trainer's rollout (`rollout_batch`), its eval
-(`_fly`), the landing interval and the classical, mission and
-step-response runners replay CUDA graphs on the card (`utils/graphs.py`).
+(`_fly`), the landing interval and the classical, mission (the hybrid one
+too), live-mission and step-response runners replay CUDA graphs on the
+card (`utils/graphs.py`).
 
 The landing phases need `autonomous_quadrotor_environment_tpu/fixtures/
 landing_policy.msgpack` in the checkout; without it the script stops at
@@ -2198,6 +2213,217 @@ MISSIONS_SENSORS_REF = {
     1: 2.762747253690447,
     2: 2.732458438192095,
 }
+# The JAX package's CPU numbers for the hybrid mode and the vision pipeline,
+# printed by `python scripts/vision_reference.py`: each seed's mean tracking
+# error with --vision, the mean INS error of both sensor modes, and
+# `vision_pose` (missions camera, 480 x 480, body-attached) at 64 poses: the
+# three round trips of the JAX package's tests/test_vision.py, 13 level
+# poses at 1-4 m, 40 tilted by up to 15 degrees, 8 with the board out of view.
+VISION_POSES = [  # (quad position, marker position, quaternion)
+    ((0.0, 0.0, -3.4), (0.0, 0.0), (1.0, 0.0, 0.0, 0.0)),
+    ((0.3, -0.2, -3.0), (0.1, 0.1), (1.0, 0.0, 0.0, 0.0)),
+    ((-0.2, 0.25, -3.8), (-0.1, 0.2), (1.0, 0.0, 0.0, 0.0)),
+    ((0.0, 0.1, -4.0), (0.0, 0.0), (1.0, 0.0, 0.0, 0.0)),
+    ((0.0841, 0.054, -3.75), (0.0, 0.0), (1.0, 0.0, 0.0, 0.0)),
+    ((0.0909, -0.0416, -3.5), (0.0, 0.0), (1.0, 0.0, 0.0, 0.0)),
+    ((0.0141, -0.099, -3.25), (0.0, 0.0), (1.0, 0.0, 0.0, 0.0)),
+    ((-0.0757, -0.0654, -3.0), (0.0, 0.0), (1.0, 0.0, 0.0, 0.0)),
+    ((-0.0959, 0.0284, -2.75), (0.0, 0.0), (1.0, 0.0, 0.0, 0.0)),
+    ((-0.0279, 0.096, -2.5), (0.0, 0.0), (1.0, 0.0, 0.0, 0.0)),
+    ((0.0657, 0.0754, -2.25), (0.0, 0.0), (1.0, 0.0, 0.0, 0.0)),
+    ((0.0989, -0.0146, -2.0), (0.0, 0.0), (1.0, 0.0, 0.0, 0.0)),
+    ((0.0412, -0.0911, -1.75), (0.0, 0.0), (1.0, 0.0, 0.0, 0.0)),
+    ((-0.0544, -0.0839, -1.5), (0.0, 0.0), (1.0, 0.0, 0.0, 0.0)),
+    ((-0.1, 0.0004, -1.25), (0.0, 0.0), (1.0, 0.0, 0.0, 0.0)),
+    ((-0.0537, 0.0844, -1.0), (0.0, 0.0), (1.0, 0.0, 0.0, 0.0)),
+    ((0.2132, 0.1866, -1.7704), (0.0, 0.0), (0.9968, 0.0041, 0.0769, 0.0225)),
+    ((0.2462, 0.2909, -3.4947), (0.0, 0.0), (0.9984, 0.0404, -0.0334, -0.0231)),
+    ((-0.0548, 0.0106, -1.8646), (0.0, 0.0), (0.9918, -0.0933, 0.0867, -0.0116)),
+    ((0.1423, 0.2957, -2.4233), (0.0, 0.0), (0.9999, 0.0027, 0.0127, -0.0082)),
+    ((0.0301, 0.1334, -3.0538), (0.0, 0.0), (0.9953, 0.0237, -0.0388, -0.0852)),
+    ((-0.2556, 0.2751, -2.8586), (0.0, 0.0), (0.998, -0.0114, -0.0541, 0.0292)),
+    ((0.0627, 0.1482, -3.2506), (0.0, 0.0), (0.9923, -0.0927, -0.0478, -0.0661)),
+    ((-0.077, -0.1393, -1.7503), (0.0, 0.0), (0.9973, 0.0391, 0.0231, -0.0574)),
+    ((-0.299, -0.0487, -2.6221), (0.0, 0.0), (0.9926, -0.0124, 0.1012, 0.0656)),
+    ((0.0599, -0.1877, -1.6834), (0.0, 0.0), (0.9962, -0.0319, -0.0564, 0.0582)),
+    ((-0.0234, -0.1181, -2.6495), (0.0, 0.0), (0.9941, 0.0214, -0.1002, -0.0356)),
+    ((0.0318, -0.0877, -3.3379), (0.0, 0.0), (0.9978, -0.0192, -0.046, 0.0437)),
+    ((0.2502, -0.0749, -2.485), (0.0, 0.0), (0.9982, 0.0102, -0.0449, -0.0378)),
+    ((0.2024, -0.1226, -2.1293), (0.0, 0.0), (0.9981, -0.009, -0.0578, -0.0165)),
+    ((0.1514, -0.0649, -2.7502), (0.0, 0.0), (0.9971, 0.071, -0.0136, 0.0225)),
+    ((0.0886, 0.0146, -1.5353), (0.0, 0.0), (0.9957, 0.0152, 0.0836, 0.0369)),
+    ((-0.1091, -0.112, -1.9602), (0.0, 0.0), (0.9981, 0.0537, -0.0282, 0.0063)),
+    ((0.0199, -0.1442, -3.1472), (0.0, 0.0), (0.9984, -0.003, 0.0442, -0.0362)),
+    ((0.0508, -0.0517, -2.3346), (0.0, 0.0), (0.9994, -0.0131, -0.0053, 0.0316)),
+    ((-0.1923, 0.1505, -3.3783), (0.0, 0.0), (0.9979, -0.0531, -0.0256, -0.0272)),
+    ((-0.0482, -0.1453, -3.263), (0.0, 0.0), (0.9976, -0.0113, -0.0438, 0.0527)),
+    ((-0.2316, 0.2387, -2.9523), (0.0, 0.0), (0.9952, 0.0905, -0.0131, 0.0362)),
+    ((-0.2426, 0.0827, -1.6318), (0.0, 0.0), (0.9959, -0.0804, 0.0412, 0.006)),
+    ((0.259, 0.2983, -2.6397), (0.0, 0.0), (0.9966, -0.003, 0.0792, 0.0222)),
+    ((-0.0473, -0.0834, -1.7576), (0.0, 0.0), (0.997, -0.0605, -0.0482, 0.0083)),
+    ((-0.0149, -0.084, -2.2679), (0.0, 0.0), (1.0, 0.0, 0.0001, 0.0001)),
+    ((-0.0463, -0.2027, -2.9838), (0.0, 0.0), (0.9943, 0.0356, 0.0337, 0.095)),
+    ((-0.1063, 0.0197, -1.8716), (0.0, 0.0), (0.9944, -0.0475, -0.0825, 0.047)),
+    ((0.2386, -0.1379, -1.6096), (0.0, 0.0), (0.9991, 0.0352, 0.0063, -0.0209)),
+    ((0.0554, 0.2958, -2.013), (0.0, 0.0), (0.9965, -0.0692, -0.0404, 0.0241)),
+    ((-0.1531, -0.1424, -2.4241), (0.0, 0.0), (0.9983, -0.0145, -0.0512, -0.0223)),
+    ((-0.0004, 0.0239, -3.3232), (0.0, 0.0), (0.9977, 0.0067, -0.0557, 0.0388)),
+    ((-0.1681, -0.1406, -3.139), (0.0, 0.0), (0.9977, 0.0345, -0.0484, 0.0331)),
+    ((-0.1785, -0.1683, -2.6249), (0.0, 0.0), (0.9936, 0.0714, -0.081, -0.0344)),
+    ((0.0113, 0.1359, -2.8268), (0.0, 0.0), (0.9959, 0.0578, -0.0636, 0.03)),
+    ((0.0096, -0.0645, -3.2377), (0.0, 0.0), (1.0, -0.0054, 0.0005, -0.0035)),
+    ((-0.0083, -0.0534, -1.6244), (0.0, 0.0), (0.9932, 0.0513, -0.0061, 0.1047)),
+    ((-0.2224, 0.1542, -2.7187), (0.0, 0.0), (0.9921, 0.0541, -0.1125, -0.0147)),
+    ((-0.1423, -0.0673, -3.1583), (0.0, 0.0), (0.994, -0.0905, 0.0591, 0.018)),
+    ((-0.2347, -0.2452, -3.2609), (0.0, 0.0), (0.9979, 0.0013, -0.0389, 0.0515)),
+    ((5.0, 0.0, -3.0), (0.0, 0.0), (1.0, 0.0, 0.0, 0.0)),
+    ((-6.0, 3.0, -2.0), (0.0, 0.0), (1.0, 0.0, 0.0, 0.0)),
+    ((20.0, 20.0, -1.0), (0.0, 0.0), (1.0, 0.0, 0.0, 0.0)),
+    ((0.0, -4.0, -3.5), (0.0, 0.0), (1.0, 0.0, 0.0, 0.0)),
+    ((1.5, 0.0, -4.0), (0.0, 0.0), (0.9914, 0.0375, 0.125, 0.0)),
+    ((0.0, 1.6, -3.8), (0.0, 0.0), (0.9962, 0.025, 0.0835, 0.0)),
+    ((-3.0, -3.0, -2.5), (0.0, 0.0), (0.9914, 0.0375, 0.125, 0.0)),
+    ((0.0, 0.0, -4.8), (0.0, 0.0), (1.0, 0.0, 0.0, 0.0)),
+]
+VISION_REF = [  # (ok, env-frame position, quaternion, rms), float32 values
+    (True, (-3.4236454e-08, 2.8288116e-07, -3.3999681),
+     (1.0, -9.6828614e-08, -2.6206939e-09, 1.36612215e-08), 0.028475735),
+    (True, (0.29833254, -0.20175368, -2.9999106),
+     (0.9999998, 0.00042256893, -0.00040818244, -5.825286e-05), 0.024696793),
+    (True, (-0.20005839, 0.24977958, -3.8000605),
+     (1.0, 8.7446046e-05, -2.494778e-05, 1.7233072e-06), 0.026563346),
+    (False, (-0.42537168, 0.49687287, -4.244401),
+     (0.9501943, -0.2593705, -0.16653034, 0.046101306), 50.335777),
+    (True, (0.08412316, 0.05344037, -3.7499838),
+     (1.0, 0.00022419935, 1.0152922e-05, -3.583607e-06), 0.02573879),
+    (True, (0.091026105, -0.042312, -3.499982),
+     (1.0, 0.00023664287, 4.211975e-05, -1.3248273e-06), 0.027725954),
+    (True, (0.013902032, -0.10149634, -3.2498517),
+     (0.99999976, 0.0006881673, -5.5743596e-05, -9.019652e-06), 0.018785331),
+    (True, (-0.074111395, -0.06237545, -2.9995959),
+     (0.99999964, -0.0007550148, 0.00039473845, 6.2765016e-06), 0.026329076),
+    (True, (-0.095883876, 0.022455597, -2.7495282),
+     (0.99999917, 0.001314511, 7.640231e-06, 8.8630195e-06), 0.024674872),
+    (True, (-0.030626003, 0.094628215, -2.499839),
+     (0.9999998, 0.00027420663, -0.00053541886, 1.8521361e-05), 0.02779319),
+    (True, (0.06600829, 0.07674132, -2.2501636),
+     (1.0, -0.00021199006, 5.6140794e-05, -4.5920196e-06), 0.011950736),
+    (True, (0.104510024, -0.026475076, -2.0020318),
+     (0.9999976, 0.0019689472, 0.0009327994, 3.064347e-06), 0.013714902),
+    (True, (0.04136018, -0.09130734, -1.7492659),
+     (1.0, 4.709974e-05, 2.455751e-05, -1.2946184e-06), 0.018590067),
+    (True, (-0.055640433, -0.09648129, -1.5003784),
+     (0.9999984, 0.0017958349, -0.00017668738, 2.3765806e-06), 0.022021001),
+    (True, (-0.09320223, -0.005798315, -1.2479079),
+     (0.9999993, 0.0008153643, 0.00090928876, 3.837599e-06), 0.021636726),
+    (True, (-0.053827394, 0.04869349, -0.99904394),
+     (0.99999017, 0.004437375, -9.075074e-06, -2.0026937e-05), 0.015637718),
+    (True, (0.21879706, 0.18638556, -1.7709088),
+     (0.9967135, 0.004158778, 0.07774438, 0.022377064), 0.048765924),
+    (False, (-0.7682162, 0.5783996, -4.290232),
+     (0.8928374, -0.24352045, -0.34140623, 0.16425906), 34.83153),
+    (True, (-0.06140571, 0.010261319, -1.865175),
+     (0.9918842, -0.093235865, 0.08565515, -0.011661436), 0.031255666),
+    (True, (0.14094476, 0.29812786, -2.423638),
+     (0.9998868, 0.0022306107, 0.012438389, -0.008167039), 0.02927674),
+    (False, (-0.8449302, 0.644972, -3.507012),
+     (0.9527379, -0.13771455, -0.25688088, 0.085658275), 14.534135),
+    (True, (-0.25297076, 0.2729076, -2.858073),
+     (0.9980826, -0.010875094, -0.05352253, 0.029123053), 0.057669066),
+    (False, (0.4764286, -0.38865346, -3.383621),
+     (0.99506897, 0.06734327, 0.07263207, -0.0052086157), 12.319216),
+    (True, (-0.07830142, -0.14350022, -1.7508254),
+     (0.9972963, 0.039756328, 0.022941725, -0.057386693), 0.06737282),
+    (False, (-1.3352804, -0.061541338, -3.3001595),
+     (0.98428667, 0.021030731, -0.1749728, -0.011045596), 9.665795),
+    (False, (-0.8322636, -0.9090489, -1.9890468),
+     (0.9790082, 0.07905602, -0.18623021, -0.024728067), 6.6525364),
+    (True, (-0.02219107, -0.1188151, -2.6496885),
+     (0.9941234, 0.02154449, -0.099942654, -0.035581674), 0.06375048),
+    (True, (0.03171713, -0.08731356, -3.3377721),
+     (0.9977974, -0.01931286, -0.046022598, 0.04369524), 0.06367375),
+    (True, (0.25089428, -0.076690994, -2.4852433),
+     (0.9982249, 0.010539261, -0.044746444, -0.03786307), 0.06300236),
+    (True, (0.20484039, -0.13029356, -2.1301138),
+     (0.9981866, -0.0076715765, -0.05735409, -0.01659073), 0.04389253),
+    (True, (0.15482835, -0.06417756, -2.7506328),
+     (0.9971526, 0.070851915, -0.01284872, 0.022395564), 0.054766633),
+    (True, (0.09254071, 0.022492884, -1.5354202),
+     (0.99567175, 0.014081961, 0.08419749, 0.03674707), 0.051879447),
+    (True, (-0.10891805, -0.11069898, -1.96013),
+     (0.9981512, 0.053484127, -0.028166002, 0.006352328), 0.033099525),
+    (True, (0.020483913, -0.14488739, -3.1473145),
+     (0.99835837, -0.0028258474, 0.04435039, -0.036132686), 0.060858972),
+    (True, (0.056410663, -0.05164324, -2.3352127),
+     (0.9994011, -0.013093039, -0.0042681503, 0.03174573), 0.054222412),
+    (True, (-0.19407843, 0.1492659, -3.3787088),
+     (0.99789697, -0.052733004, -0.026129803, -0.02716742), 0.047591317),
+    (True, (-0.04848627, -0.14544134, -3.2629042),
+     (0.9975827, -0.011265571, -0.04388029, 0.052692708), 0.05938714),
+    (False, (1.0990725, 0.7874513, -4.110976),
+     (0.89310294, -0.25017992, 0.33054137, -0.17469837), 24.122108),
+    (True, (-0.24173082, 0.08120564, -1.6311331),
+     (0.99590605, -0.08016743, 0.04133235, 0.006001974), 0.04281972),
+    (True, (0.25936803, 0.30286902, -2.6410005),
+     (0.9965923, -0.003960611, 0.079332724, 0.022234865), 0.048363015),
+    (True, (-0.04539203, -0.081383474, -1.7576568),
+     (0.99696445, -0.060801998, -0.047907155, 0.008358971), 0.033816293),
+    (True, (-0.014897914, -0.083226785, -2.2675688),
+     (1.0, -0.0001439559, 9.9987e-05, 0.00010688068), 0.027541406),
+    (False, (-0.89210427, -0.6840359, -3.4858475),
+     (0.96101934, 0.19995023, -0.18425082, -0.05013286), 13.70839),
+    (True, (-0.111471936, 0.021706782, -1.8720791),
+     (0.9942637, -0.047848828, -0.08329595, 0.04703176), 0.059769593),
+    (True, (0.23902768, -0.1441384, -1.6095393),
+     (0.9991083, 0.03611718, 0.006376851, -0.020916762), 0.051575396),
+    (True, (0.058266044, 0.29053372, -2.0128667),
+     (0.9965745, -0.068334155, -0.039947163, 0.02395415), 0.052406006),
+    (True, (-0.14933674, -0.14426564, -2.4235702),
+     (0.9983747, -0.01416298, -0.05046693, -0.022373343), 0.046277642),
+    (True, (-0.00075239677, 0.02248075, -3.3230774),
+     (0.99766374, 0.007108508, -0.05582039, 0.038737707), 0.06721772),
+    (True, (-0.16782595, -0.13916118, -3.139204),
+     (0.99769825, 0.034111224, -0.048329543, 0.03314792), 0.05913101),
+    (True, (-0.17975433, -0.1704681, -2.6250577),
+     (0.99350184, 0.071873635, -0.08124028, -0.03447254), 0.05756322),
+    (True, (0.010105667, 0.13716349, -2.8268964),
+     (0.99584925, 0.057492897, -0.06385267, 0.030027876), 0.05610036),
+    (True, (0.009903195, -0.06463816, -3.237691),
+     (0.9999793, -0.0053616213, 0.0005882987, -0.0035030663), 0.029941406),
+    (False, (-1.557305, -1.1168183, -2.5921233),
+     (0.9311139, 0.2462395, -0.26558945, -0.043072056), 8.03891),
+    (True, (-0.22274643, 0.15460812, -2.7188652),
+     (0.9920664, 0.05401139, -0.11257626, -0.01461675), 0.045361776),
+    (False, (-0.6745922, -0.7980297, -3.7254443),
+     (0.9748888, 0.19570595, -0.09482321, -0.0479546), 12.993346),
+    (True, (-0.23484868, -0.24528635, -3.2612777),
+     (0.9979104, 0.0013330476, -0.03895716, 0.051531427), 0.0681041),
+    (False, (-3.0603805, -0.956746, -4.637207),
+     (0.59672254, 0.0145869795, -0.802314, -0.0012990911), 56.298187),
+    (False, (-14.246306, 1.776553, 1.2154641),
+     (0.6498211, -0.17135857, 0.74051374, 0.0028646518), 122.71665),
+    (False, (234959.02, 130349.36, -396922.22),
+     (0.39851844, 0.13284035, 0.055532373, -0.9057884), 149.06845),
+    (False, (6.218626, -2.379005, 1.0564432),
+     (0.94392073, 0.17232653, 0.08745446, 0.26771054), 34.704556),
+    (False, (-8279.24, 58631.625, 7139.127),
+     (0.7515625, 0.5534054, 0.20857646, -0.29221934), 90.71964),
+    (False, (-428.65213, 18800.496, 254.7089),
+     (0.79358685, 0.5725539, 0.0029410466, -0.20589657), 109.77735),
+    (False, (-40584.28, 153273.39, -99061.195),
+     (0.7240505, 0.102198586, 0.32594678, -0.5992203), 121.46948),
+    (False, (1.2000712, -2.3406053, -4.429297),
+     (0.7746083, 0.5220887, 0.296345, 0.19895987), 38.082516),
+]
+MISSIONS_VISION_REF = {
+    0: 2.128033130828823,
+    1: 1.6264813650133354,
+    2: 1.8646638255034174,
+}
+MISSIONS_INS_REF = {  # mean INS position error (log column 17)
+    'rl_sens': {0: 3.4743244562830244, 1: 2.749466304268156, 2: 2.7256429195404053},
+    'rl_vis': {0: 2.1020263195969164, 1: 1.6022152033235346, 2: 1.8413279335945845},
+}
 STEP_RESPONSE_REF = {
     "step_x": {"rise_s": 0.51, "settling_s": 0.9,
                "peak": 1.0889610052108765, "ss_error": -0.0030486583709716797},
@@ -2313,24 +2539,32 @@ def phase_missions() -> dict:
     the fused sensor estimate (--sensors) at seeds 0, 1 and 2, whose mean
     must lie within 3 standard errors of the JAX CPU's 3-seed mean (the
     standard error of the difference of the two 3-seed means: the port's
-    generators are not jax.random). No kernel runs."""
+    generators are not jax.random); and in the hybrid mode (--vision: PnP
+    fixes fused into the INS every 10 frames, only the due steps of each
+    chunk rendering and solving) at the same seeds, held the same way, and
+    below the card's --sensors mean where the JAX CPU's is below its own.
+    The mean INS position error (log column 17) of both sensor modes is
+    printed beside the JAX CPU's. No kernel runs."""
     import tempfile
 
     from autonomous_quadrotor_environment_tpu_torch.apps import missions_eval
 
     t0 = time.perf_counter()
-    runs, bad, seconds = {}, [], {}
+    runs, bad, seconds, ins = {}, [], {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         zero_counters()
         for name, argv in (("pid", []), ("rl", ["--policy", SOLVED_CONTROLLER]),
-                           *((f"rl_sens_{s}", ["--policy", SOLVED_CONTROLLER, "--sensors",
-                                               "--seed", str(s)])
+                           *((f"rl_{mode}_{s}", ["--policy", SOLVED_CONTROLLER, f"--{flag}",
+                                                 "--seed", str(s)])
+                             for mode, flag in (("sens", "sensors"), ("vis", "vision"))
                              for s in MISSIONS_SENSORS_REF)):
             sync()
             t = time.perf_counter()
             res = missions_eval.main(argv + ["--out", tmp])
             seconds[name] = time.perf_counter() - t
             runs[name] = [r["mean_track_err"] for r in res["episodes"]]
+            if "mean_ins_err" in res:
+                ins[name] = res["mean_ins_err"]
         launches = read_counters()
     for mode, want in MISSIONS_REF.items():
         got = runs[mode]
@@ -2345,11 +2579,24 @@ def phase_missions() -> dict:
         m = sum(xs) / len(xs)
         return m, math.sqrt(sum((x - m) ** 2 for x in xs) / (len(xs) - 1) / len(xs))
 
-    card_means = [sum(v) / len(v) for k, v in runs.items() if k.startswith("rl_sens")]
-    (cm, cse), (jm, jse) = mean_se(card_means), mean_se(list(MISSIONS_SENSORS_REF.values()))
-    band = 3.0 * math.sqrt(cse ** 2 + jse ** 2)
-    if not abs(cm - jm) <= band:
-        bad.append(f"--sensors mean {cm} outside the JAX CPU's {jm} +/- {band}")
+    bands = {}
+    for mode, flag, ref in (("sens", "--sensors", MISSIONS_SENSORS_REF),
+                            ("vis", "--vision", MISSIONS_VISION_REF)):
+        card_means = [sum(v) / len(v) for k, v in runs.items() if k.startswith(f"rl_{mode}_")]
+        (cm, cse), (jm, jse) = mean_se(card_means), mean_se(list(ref.values()))
+        band = 3.0 * math.sqrt(cse ** 2 + jse ** 2)
+        bands[mode] = {"card_mean": cm, "card_se": cse, "jax_cpu_mean": jm, "jax_cpu_se": jse,
+                       "band": band}
+        if not abs(cm - jm) <= band:
+            bad.append(f"{flag} mean {cm} outside the JAX CPU's {jm} +/- {band}")
+    jax_vis_below = bands["vis"]["jax_cpu_mean"] < bands["sens"]["jax_cpu_mean"]
+    if jax_vis_below and not bands["vis"]["card_mean"] < bands["sens"]["card_mean"]:
+        bad.append(f"--vision mean {bands['vis']['card_mean']} not below --sensors "
+                   f"{bands['sens']['card_mean']}, as it is on the JAX CPU")
+    ins_err = {mode: {"card": sum(ins[f"rl_{mode}_{s}"] for s in ref) / len(ref),
+                      "jax_cpu": sum(ref.values()) / len(ref)}
+               for mode, ref in (("sens", MISSIONS_INS_REF["rl_sens"]),
+                                 ("vis", MISSIONS_INS_REF["rl_vis"]))}
     if launches != launches_want():
         bad.append(f"the missions launched {launches}, want none")
     out = {"phase": "missions", "seconds": time.perf_counter() - t0, "card": card(),
@@ -2358,8 +2605,7 @@ def phase_missions() -> dict:
            "jax_cpu_mean_track_err": {k: sum(v) / len(v) for k, v in MISSIONS_REF.items()},
            "max_rel_err": {m: max(abs(g - w) / abs(w) for g, w in zip(runs[m], want))
                            for m, want in MISSIONS_REF.items()},
-           "sensors": {"card_mean": cm, "card_se": cse, "jax_cpu_mean": jm, "jax_cpu_se": jse,
-                       "band": band},
+           "sensors": bands["sens"], "vision": bands["vis"], "mean_ins_err": ins_err,
            "per_episode": runs, "run_seconds": seconds, "launches": launches}
     emit(out)
     if bad:
@@ -2421,6 +2667,222 @@ def phase_polish(rl_rate: float) -> dict:
     return out
 
 
+VISION_POS_ATOL, VISION_QUAT_ATOL, VISION_RMS_ATOL = 1e-3, 1e-3, 1e-2
+VISION_BATCHES = (14, 64)  # the missions' episodes, and the pose set
+VISION_GRAPH_STEPS = 200
+
+
+def _vision_inputs(idx=None):
+    pos, mxy, quat = (torch.tensor([p[k] for p in VISION_POSES]) for k in range(3))
+    if idx is not None:
+        pos, mxy, quat = pos[idx], mxy[idx], quat[idx]
+    return pos, mxy, quat
+
+
+def _vision_diffs(got, want_ok, want_pos, want_quat, want_rms, what: str, bad: list) -> dict:
+    """Flags equal; where both are ok, position, quaternion and rms within
+    their tolerances."""
+    ok = got.ok.cpu()
+    both = ok & want_ok
+    d = {"flags_equal": bool(torch.equal(ok, want_ok)), "ok": int(ok.sum()),
+         "pos": float((got.pos_env.cpu() - want_pos).abs()[both].max()),
+         "quat": float((got.quat.cpu() - want_quat).abs()[both].max()),
+         "rms": float((got.rms.cpu() - want_rms).abs()[both].max())}
+    if not d["flags_equal"]:
+        bad.append(f"vision_pose ok flags differ from {what} at poses "
+                   f"{torch.nonzero(ok != want_ok).flatten().tolist()}")
+    for key, tol in (("pos", VISION_POS_ATOL), ("quat", VISION_QUAT_ATOL),
+                     ("rms", VISION_RMS_ATOL)):
+        if not d[key] <= tol:
+            bad.append(f"vision_pose {key} {d[key]} from {what} above {tol}")
+    return d
+
+
+def phase_vision() -> dict:
+    """The GPS-denied vision path (`vision/`: render, corners, PnP, fusion),
+    no kernel of its own: `vision_pose` with the missions' camera (480 x 480,
+    body-attached) at the 64 poses of `VISION_POSES` as one batch on the
+    card, held to the port on the CPU and to the JAX package's CPU outputs
+    (`VISION_REF`): ok flags equal, and where ok the position within 1e-3 m,
+    the quaternion within 1e-3 and the rms within 1e-2 px. The ms of one
+    batched call at E=14 and E=64 by CUDA events, eagerly and as a CUDA graph
+    replay (bit-equal to eager). Then `VISION_GRAPH_STEPS` steps of the
+    hybrid mission (14 episodes, fixes every 10 steps) replayed from its
+    100-step CUDA graphs and run eagerly from the same draws: bit-equal."""
+    from autonomous_quadrotor_environment_tpu_torch.apps import missions_eval as me
+    from autonomous_quadrotor_environment_tpu_torch.apps.robust_eval import load_policy
+    from autonomous_quadrotor_environment_tpu_torch.config import (
+        CameraConfig,
+        MarkerConfig,
+        SensorConfig,
+    )
+    from autonomous_quadrotor_environment_tpu_torch.vision import vision_pose
+
+    t0 = time.perf_counter()
+    cam, marker = CameraConfig(width=480, height=480), MarkerConfig()
+    pose = lambda p, m, q: vision_pose(p, m, cam, marker, quad_quat=q)
+    bad = []
+    zero_counters()
+    with torch.no_grad():
+        pos, mxy, quat = _vision_inputs()
+        card_out = pose(pos.to(DEVICE), mxy.to(DEVICE), quat.to(DEVICE))
+        cpu_out = pose(pos, mxy, quat)
+        ref_ok = torch.tensor([r[0] for r in VISION_REF])
+        ref = [torch.tensor([list(r[k]) if k < 3 else r[k] for r in VISION_REF])
+               for k in (1, 2, 3)]
+        vs_cpu = _vision_diffs(card_out, cpu_out.ok, cpu_out.pos_env, cpu_out.quat,
+                               cpu_out.rms, "the port on the CPU", bad)
+        vs_jax = _vision_diffs(card_out, ref_ok, *ref, "the JAX CPU", bad)
+        times = {}
+        for e in VISION_BATCHES:
+            args = tuple(x.to(DEVICE) for x in _vision_inputs(torch.arange(e) % len(VISION_POSES)))
+            eager_out = pose(*args)
+            graph_out = graphs.run(("vision_pose", e), pose, args)
+            if not all(torch.equal(a, b) for a, b in zip(graph_out, eager_out)):
+                bad.append(f"vision_pose at E={e}: its graph replay differs from eager")
+            times[e] = {"eager_ms": time_cuda(lambda: pose(*args), 2, 5),
+                        "graph_ms": time_cuda(lambda: graphs.run(("vision_pose", e), pose, args),
+                                              2, 5)}
+    steps = VISION_GRAPH_STEPS
+    cfg = EnvConfig(n_steps=steps, direct_control=True, training=False)
+    model = load_policy(SOLVED_CONTROLLER, 128, torch.device(DEVICE))
+    run = me.make_rl_mission_runner(cfg, model, SensorConfig(), True, steps, use_vision=True)
+    traj = me.episode_trajectories(cfg.dt, DEVICE)
+    draws = me.draw_sensors(0, traj.positions.shape[0], steps, DEVICE)
+    sync()
+    t = time.perf_counter()
+    graph_log = run(traj, draws)  # captures its 100-step graph here
+    first_s = time.perf_counter() - t
+    t = time.perf_counter()
+    again = run(traj, draws)
+    warm_s = time.perf_counter() - t
+    t = time.perf_counter()
+    with graphs.eager():
+        eager_log = run(traj, draws)
+    eager_s = time.perf_counter() - t
+    mission = {"steps": steps, "episodes": int(graph_log.shape[0]),
+               "graph_vs_eager_bit_equal": bool((graph_log == eager_log).all()),
+               "relaunch_bit_equal": bool((graph_log == again).all()),
+               "first_call_s": first_s, "warm_s": warm_s, "eager_s": eager_s,
+               "mean_ins_err": float(graph_log[:, :, 17].mean())}
+    if not (mission["graph_vs_eager_bit_equal"] and mission["relaunch_bit_equal"]):
+        bad.append(f"the hybrid mission's graph is not bit-equal to eager: {mission}")
+    launches = read_counters()
+    if launches != launches_want():
+        bad.append(f"the vision path launched {launches}, want none")
+    out = {"phase": "vision", "seconds": time.perf_counter() - t0, "card": card(),
+           "poses": len(VISION_POSES), "width": cam.width, "height": cam.height,
+           "vs_cpu": vs_cpu, "vs_jax_cpu": vs_jax,
+           "batch_ms": {str(e): v for e, v in times.items()}, "mission": mission,
+           "launches": launches}
+    emit(out)
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return out
+
+
+MANUAL_EPISODES = 3
+
+
+def phase_apps() -> dict:
+    """The camera-facing and human-facing apps on the card: the native
+    preview renderer built with g++ and rendering the marker; `replay`
+    writing frames; `live_mission --headless-keys .2.3.1` switching its
+    three modes (one CUDA graph per mode, two for the hybrid mode's phases);
+    `manual_flight --script` (a descent command) through
+    `MANUAL_EPISODES` episodes with every launch counter set to 0 just
+    before and read just after: one B5 launch per decision and per reset
+    (batch 1); `watch --once` over the JSONL of a 2-update
+    `train_control` run; `forward_bench`'s rows naming the card."""
+    import tempfile
+
+    import numpy as np
+
+    from autonomous_quadrotor_environment_tpu_torch import native
+    from autonomous_quadrotor_environment_tpu_torch.apps import (
+        forward_bench,
+        live_mission,
+        manual_flight,
+        replay,
+        train_control,
+        watch,
+    )
+
+    t0 = time.perf_counter()
+    bad, out = [], {"phase": "apps", "card": card()}
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        if not native.preview_available():
+            raise AssertionError("the native preview renderer did not build with g++")
+        st = np.zeros(13)
+        st[6], st[4] = 1.0, -3.0
+        gray = native.render_preview(st, (0.0, 0.0), (1.0, 1.0, 2.0), 160, 120).mean(-1)
+        out["native"] = {"build_and_render_s": time.perf_counter() - t,
+                         "dark": bool((gray < 40).any()), "light": bool((gray > 200).any())}
+        if not (out["native"]["dark"] and out["native"]["light"]):
+            bad.append("the preview frame shows no marker")
+
+        states = np.zeros((100, 13))
+        states[:, 6] = 1.0
+        states[:, 4] = np.linspace(0, -4, 100)
+        np.save(f"{tmp}/flight.npy", states)
+        rp = replay.main(["--log", f"{tmp}/flight.npy", "--every", "25", "--width", "80",
+                          "--height", "60", "--out", f"{tmp}/frames"])
+        out["replay_frames"] = len(rp["frames"])
+        if len(rp["frames"]) != 4 or not all(os.path.getsize(f) > 100 for f in rp["frames"]):
+            bad.append(f"replay wrote {rp['frames']}")
+
+        t = time.perf_counter()
+        lm = live_mission.main(["--policy", SOLVED_CONTROLLER, "--headless-keys", ".2.3.1",
+                                "--max-seconds", "0.5", "--fps", "20"])
+        out["live_mission"] = dict(lm, seconds=time.perf_counter() - t)
+        if lm["mode_switches"] != 3 or lm["frames"] < 5:
+            bad.append(f"live_mission: {lm}")
+
+        cmds = np.zeros((400, 3))
+        cmds[:, 2] = -1.0
+        np.save(f"{tmp}/cmds.npy", cmds)
+        sync()
+        zero_counters()
+        t = time.perf_counter()
+        mf = manual_flight.main(["--controller", SOLVED_CONTROLLER, "--user", "chip",
+                                 "--episodes", str(MANUAL_EPISODES), "--script",
+                                 f"{tmp}/cmds.npy", "--out", f"{tmp}/manual"])
+        sync()
+        launches = read_counters()
+        decision_dt = 0.1  # LandingConfig.task_interval (10) x dt (0.01)
+        decisions = sum(round(r["Time"] / decision_dt) for r in mf["episodes"])
+        out["manual_flight"] = {"episodes": mf["episodes"], "decisions": decisions,
+                                "resets": MANUAL_EPISODES, "launches": launches,
+                                "seconds": time.perf_counter() - t,
+                                "ms_per_decision": (time.perf_counter() - t) * 1e3 / decisions}
+        if launches != launches_want(render_nadir=decisions + MANUAL_EPISODES):
+            bad.append(f"manual_flight launched {launches} for {decisions} decisions and "
+                       f"{MANUAL_EPISODES} resets")
+        if len(mf["episodes"]) != MANUAL_EPISODES or not os.path.exists(mf["log"]):
+            bad.append(f"manual_flight logged {mf}")
+
+        train_control.main(["--updates", "2", "--eval-every", "1", "--num-envs", "64",
+                            "--rollout-steps", "16", "--eval-episodes", "4", "--out",
+                            f"{tmp}/ctrl"])
+        (jsonl,) = [p for p in os.listdir(f"{tmp}/ctrl") if p.endswith(".jsonl")]
+        dash = watch.main([f"{tmp}/ctrl/{jsonl}", "--once"])
+        out["watch_lines"] = len(dash.splitlines())
+        if not all(label in dash for label in ("eval reward", "critic loss", "latest")):
+            bad.append(f"watch rendered {dash!r}")
+
+        rows = forward_bench.main([])
+        out["forward_bench"] = rows
+        if [r["size"] for r in rows] != list(forward_bench.SIZES) or any(
+                r["device"] != out["card"] for r in rows):
+            bad.append(f"forward_bench rows {rows}")
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return out
+
+
 def _tree_items(tree, path=()):
     """(path, leaf) pairs of a nested dict."""
     for k, v in tree.items():
@@ -2463,8 +2925,9 @@ def main() -> int:
     cl = phase_classical()
     control = (phase_control_graph_vs_eager(), cl, phase_missions(), phase_step_response(),
                phase_polish(cl["rates"]["rl"]))
+    vision = (phase_vision(), phase_apps())
     for out in (kvp, gvp, rvp, rnd, sl, fly, lvp, lgve, land, land7, tr, trr, ln, lnr,
-                tl) + robust + control:
+                tl) + robust + control + vision:
         seconds[out["phase"]] = out["seconds"]
     max_err = max([r["max_abs_err"] for r in kvp["runs"]] + [sl["compare"]["max_abs_err"]])
     fused = tr["launches_per_step"][-1]

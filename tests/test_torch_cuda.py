@@ -780,3 +780,108 @@ def test_mission_chunk_replay_equals_its_eager_steps(card):
         want = (rl(traj, draws), pid(traj))
     for g, w in zip(got, want):
         assert (g == w).all()
+
+
+def _vision_poses(e):
+    """``e`` body-attached views over the board at 1.5-3 m, rolled and
+    pitched by up to 6 degrees (no yaw: the detector orders the corners of
+    an axis-aligned board), and one with the board out of view."""
+    gen = torch.Generator().manual_seed(0)
+    pos = torch.cat([torch.rand(e, 2, generator=gen) * 0.6 - 0.3,
+                     torch.rand(e, 1, generator=gen) * 1.5 - 3.5], dim=1)
+    pos[-1, 0] = 5.0
+    tilt = (torch.rand(e, 2, generator=gen) - 0.5) * 0.1
+    quat = torch.cat([torch.ones(e, 1), tilt, torch.zeros(e, 1)], dim=1)
+    return pos, torch.zeros(e, 2), quat / quat.norm(dim=1, keepdim=True)
+
+
+def test_vision_pose_batch_on_the_card_matches_the_cpu(card):
+    """The missions camera's `vision_pose` on a batch of 8: ok flags equal
+    to the CPU's, and where ok the position within 1e-3 m, the quaternion
+    within 1e-3, the rms within 1e-2 px (chip_smoke.py's vision gates)."""
+    from autonomous_quadrotor_environment_tpu_torch.config import MarkerConfig
+    from autonomous_quadrotor_environment_tpu_torch.vision import vision_pose
+
+    cam, marker = CameraConfig(width=480, height=480), MarkerConfig()
+    args = _vision_poses(8)
+    with torch.no_grad():
+        cpu = vision_pose(*args[:2], cam, marker, quad_quat=args[2])
+        got = vision_pose(*(x.to(card) for x in args[:2]), cam, marker,
+                          quad_quat=args[2].to(card))
+    assert torch.equal(got.ok.cpu(), cpu.ok) and bool(cpu.ok[:-1].all()) and not cpu.ok[-1]
+    ok = cpu.ok
+    assert (got.pos_env.cpu() - cpu.pos_env)[ok].abs().max() <= 1e-3
+    assert (got.quat.cpu() - cpu.quat)[ok].abs().max() <= 1e-3
+    assert (got.rms.cpu() - cpu.rms)[ok].abs().max() <= 1e-2
+
+
+def test_vision_mission_graph_is_bit_equal_to_eager(card):
+    """21 steps of the hybrid mission for 2 episodes (fixes due at steps 1,
+    11 and 21; chunks of 100, so one graph keyed by phase 0) replayed from
+    its CUDA graph and run eagerly from the same draws: bit-equal."""
+    from autonomous_quadrotor_environment_tpu_torch.apps import missions_eval as me
+    from autonomous_quadrotor_environment_tpu_torch.config import SensorConfig
+    from autonomous_quadrotor_environment_tpu_torch.fixtures import SOLVED_CONTROLLER
+    from autonomous_quadrotor_environment_tpu_torch.apps.robust_eval import load_policy
+    from autonomous_quadrotor_environment_tpu_torch.missions import (
+        stack_trajectories,
+        target_parse,
+    )
+    from autonomous_quadrotor_environment_tpu_torch.utils import graphs
+
+    steps = 21
+    cfg = EnvConfig(n_steps=steps, direct_control=True, training=False)
+    model = load_policy(SOLVED_CONTROLLER, 128, card)
+    run = me.make_rl_mission_runner(cfg, model, SensorConfig(), True, steps, use_vision=True)
+    traj = stack_trajectories([me._make_traj(target_parse(ep), cfg.dt) for ep in (0, 4)])
+    draws = me.draw_sensors(0, 2, steps, card)
+    graph = run(traj, draws)
+    with graphs.eager():
+        eager = run(traj, draws)
+    assert (graph == eager).all()
+    assert (graph[:, 1, 17] != 0).all()
+
+
+@pytest.mark.parametrize("mode", [0, 2])
+def test_live_mission_frames_replay_bit_equal_to_eager(card, mode):
+    """8 frames of `live_mission`'s true-state and hybrid chunk steppers
+    (chunks of 5 from `graphs.scan(start=)`; the hybrid one's graphs keyed
+    by phases 0 and 5, fixes due at steps 1, 11, 21 and 31) replayed from
+    their CUDA graphs and run eagerly from the same draws: bit-equal, and
+    equal to the mission runner's rows."""
+    from autonomous_quadrotor_environment_tpu_torch.apps import live_mission
+    from autonomous_quadrotor_environment_tpu_torch.apps import missions_eval as me
+    from autonomous_quadrotor_environment_tpu_torch.apps.robust_eval import load_policy
+    from autonomous_quadrotor_environment_tpu_torch.config import SensorConfig
+    from autonomous_quadrotor_environment_tpu_torch.fixtures import SOLVED_CONTROLLER
+    from autonomous_quadrotor_environment_tpu_torch.missions import (
+        stack_trajectories,
+        target_parse,
+    )
+    from autonomous_quadrotor_environment_tpu_torch.utils import graphs
+
+    chunk, frames = 5, 8
+    cfg = EnvConfig(n_steps=me.MISSION_STEPS, direct_control=True, training=False)
+    model = load_policy(SOLVED_CONTROLLER, 128, card)
+    traj = stack_trajectories([me._make_traj(target_parse(1), cfg.dt)]).to(card)
+    table = (traj.positions, traj.velocities)
+    draws = me.draw_sensors(0, 1, chunk * frames, card)
+    step = live_mission.make_steppers(cfg, model, SensorConfig(), chunk)[mode]
+    init = me.make_mission_body(cfg, model, SensorConfig(), False)[1]
+
+    def fly():
+        carry, rows = init(1, draws.drift_u), []
+        with torch.no_grad():
+            for f in range(frames):
+                noise = graphs.tree_map(lambda a: a[f * chunk:(f + 1) * chunk], draws.noise)
+                carry, row = step(carry, f * chunk, noise, table)
+                rows.append(row[0])
+        return torch.stack(rows)
+
+    graph = fly()
+    with graphs.eager():
+        eager = fly()
+    assert (graph == eager).all()
+    want = me.make_rl_mission_runner(cfg, model, SensorConfig(), mode > 0, chunk * frames,
+                                     use_vision=mode == 2)(traj, draws if mode else None)
+    assert (graph.cpu().numpy() == want[0, chunk - 1::chunk]).all()

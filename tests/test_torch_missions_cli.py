@@ -2,7 +2,7 @@
 JAX package's, on the CPU: `missions_eval` with the PID and with the solved
 fixture on the true state (300 steps) and on the fused sensor estimate
 with the JAX package's own draws injected (50 steps), per episode;
-`--vision` refused with the ROADMAP item that will port it;
+`--vision` for 21 steps;
 `step_response` (200 steps); `train_control --polish` for 2 updates."""
 
 import numpy as np
@@ -55,11 +55,15 @@ def test_missions_eval_sensors_with_the_jax_draws(tmp_path, monkeypatch):
     np.testing.assert_allclose(_errors(got), _errors(want), rtol=RTOL, atol=ATOL)
 
 
-def test_missions_eval_refuses_vision(tmp_path):
-    with pytest.raises(NotImplementedError, match="A15"):
-        me.main(["--policy", SOLVED_CONTROLLER, "--vision", "--device", "cpu",
-                 "--out", str(tmp_path)])
-    assert not any(tmp_path.iterdir())
+def test_missions_eval_vision_runs(tmp_path, capsys):
+    """--vision (which implies --sensors) flies every episode for 21 steps,
+    fixes due at steps 1, 11 and 21, and writes the hybrid mode's table."""
+    res = me.main(["--policy", SOLVED_CONTROLLER, "--vision", "--steps", "21", "--device",
+                   "cpu", "--out", str(tmp_path)])
+    rows = (tmp_path / "rl_vis_results.csv").read_text().splitlines()
+    assert len(rows) == 1 + len(res["episodes"]) == 15
+    assert np.isfinite(res["mean_track_err"])
+    assert "rl_vis_results.csv" in capsys.readouterr().out
 
 
 def test_step_response_matches_jax():
