@@ -33,6 +33,10 @@ Differences of form from the JAX package:
   package: the rollout kernel refuses it (`rollout_fused.supports`), so a
   robust config rolls out through `rollout_batch`, whose fresh domains and
   gust draws are injectable too, and updates through autograd, B3 or B4.
+* For data parallelism (`parallel.dp`) a step takes a gradient reduce
+  (each minibatch's gradients averaged over the ranks before the clip and
+  the Adam step, which keeps the Adam step out of B4), a metric reduce,
+  and the envs one rank rolls out, which the kernels' gates read.
 * bf16 products are refused with the ROADMAP item that will port them, and
   on the card so are shapes that the JAX package sends to a kernel the
   port's kernels do not take yet (hidden widths other than 128, B2 tiles
@@ -43,8 +47,9 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..config import EnvConfig, PPOConfig, TrainConfig
@@ -57,6 +62,12 @@ from ..ops.ppo_fused_t import TILE_STEP, fused_ppo_grad_t
 from ..utils import graphs
 from .gae import gae_advantages
 from .networks import ActorCritic, DiagGaussian
+
+
+# A cross-rank reduce of a minibatch's gradients (a list of tensors in
+# parameter order) and of a step's metrics (a dict of 0-d tensors).
+GradReduce = Callable[[list], list]
+MetricReduce = Callable[[dict], dict]
 
 
 class Rollout(NamedTuple):
@@ -106,6 +117,12 @@ def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> None:
         g.mul_(scale)
 
 
+def stream(seed: int, *tags: int) -> int:
+    """A 64-bit generator seed for the stream ``tags`` of run ``seed``: the
+    JAX package's `fold_in` of the run key, as a seed."""
+    return int(np.random.SeedSequence([seed, *tags]).generate_state(1, np.uint64)[0])
+
+
 def ppo_init(
     seed: int,
     env_cfg: EnvConfig,
@@ -153,6 +170,7 @@ def rollout_batch(
     fresh_dom: Optional[DomainDraws] = None,
     fresh_gust: Optional[torch.Tensor] = None,
     gust_eps: Optional[torch.Tensor] = None,
+    fresh_vel_u: Optional[torch.Tensor] = None,
 ) -> tuple[hover.EnvState, Rollout, torch.Tensor]:
     """Collect ``steps`` transitions from every env of the batch (JAX
     ppo.py:129-217): the policy acts on the env's window before the step,
@@ -167,9 +185,9 @@ def rollout_batch(
     The randomness is drawn from ``gen`` in this order unless given: the
     action noise eps (T, B, 4) ~ N(0, 1), then the fresh episodes, as
     initial physical states ``fresh_x0`` ((T, B, 13) without a pool,
-    (P, B, 13) with one) that `hover.reset` warms up (it draws a velocity
-    task's targets from ``gen``); under randomization also their domains'
-    draws ``fresh_dom`` (a `DomainDraws` over the T x B or P x B fresh
+    (P, B, 13) with one) that `hover.reset` warms up, a velocity task's
+    target draws ``fresh_vel_u`` (T | P, B, 3); under randomization also
+    their domains' draws ``fresh_dom`` (a `DomainDraws` over the T x B or P x B fresh
     episodes, step or pool major) and
     their warmup steps' gust draws ``fresh_gust`` (warmup, T | P, B, 3),
     then every step's gust draw ``gust_eps`` (T, B, 3). All fresh episodes
@@ -192,6 +210,7 @@ def rollout_batch(
         dtype=env_states.x.dtype,
         dom_draws=None if fresh_dom is None else fresh_dom.reshape(n_fresh * b),
         warmup_gust=None if fresh_gust is None else fresh_gust.reshape(-1, n_fresh * b, 3),
+        vel_u=None if fresh_vel_u is None else fresh_vel_u.reshape(n_fresh * b, 3),
     )
     if env_cfg.randomization.enabled and gust_eps is None:
         gust_eps = torch.randn(steps, b, 3, generator=gen, device=dev)
@@ -340,7 +359,9 @@ def ppo_loss(
     advantages: torch.Tensor,     # (n,)
     cfg: PPOConfig,
 ) -> tuple[torch.Tensor, dict]:
-    """Clipped-surrogate PPO loss (reference ppo.py:186-203)."""
+    """Clipped-surrogate PPO loss (reference ppo.py:186-203), reduced over
+    the rows, the last batch axis: 0-d for one model's (n, ...) rows, (S,)
+    for the stacked seeds' (S, n, ...) rows (`agents.multiseed`)."""
     mean, values, log_std = model(obs)
     dist = DiagGaussian(mean, log_std)
     logprobs = dist.log_prob(actions)
@@ -348,14 +369,14 @@ def ppo_loss(
     surr1 = ratios * advantages
     surr2 = torch.clamp(ratios, 1.0 - cfg.clip_eps, 1.0 + cfg.clip_eps) * advantages
     actor_loss = -torch.minimum(surr1, surr2)
-    critic_loss = 0.5 * torch.mean((values - returns) ** 2)
+    critic_loss = 0.5 * torch.mean((values - returns) ** 2, dim=-1)
     entropy = dist.entropy().sum(-1)
-    loss = actor_loss.mean() + critic_loss - cfg.entropy_coef * entropy.mean()
+    loss = actor_loss.mean(-1) + critic_loss - cfg.entropy_coef * entropy.mean(-1)
     metrics = {
-        "actor_loss": actor_loss.mean(),
+        "actor_loss": actor_loss.mean(-1),
         "critic_loss": critic_loss,
-        "entropy": entropy.mean(),
-        "ratio_max": ratios.max(),
+        "entropy": entropy.mean(-1),
+        "ratio_max": ratios.amax(-1),
     }
     return loss, metrics
 
@@ -391,6 +412,7 @@ def ppo_update_t(
     gen: Optional[torch.Generator],
     cfg: PPOConfig,
     perms: Optional[torch.Tensor] = None,
+    grad_reduce: Optional[GradReduce] = None,
 ) -> dict:
     """K-epoch minibatched PPO update on the transposed batch through
     `ops.ppo_fused_t.fused_ppo_grad_t`, in place on ``model`` and ``opt``.
@@ -398,8 +420,11 @@ def ppo_update_t(
     Per epoch, a permutation of the ``n // tile`` blocks from ``gen`` is cut
     into ``n_mb`` minibatches of ``mb // tile`` blocks; a full batch takes
     every block in order and draws nothing. ``perms`` (K, n_mb, mb // tile)
-    replaces the drawn permutations. Returns the metrics averaged over all
-    minibatches, as 0-dim tensors (no synchronization)."""
+    replaces the drawn permutations. ``grad_reduce`` (the cross-rank mean of
+    `parallel.dp`) takes each minibatch's 12 gradients before the clip and
+    the Adam step, as the JAX package's pmean does (JAX ppo.py:547-549).
+    Returns the metrics averaged over all minibatches, as 0-dim tensors (no
+    synchronization)."""
     steps, _, b = obs_t.shape
     n = steps * b
     mb = min(cfg.minibatch_size, n) if cfg.minibatch_size > 0 else n
@@ -426,6 +451,8 @@ def ppo_update_t(
                 action_std=cfg.action_std, clip_eps=cfg.clip_eps,
                 entropy_coef=cfg.entropy_coef,
             )
+            if grad_reduce is not None:
+                grads = grad_reduce(grads)
             if cfg.max_grad_norm > 0:
                 clip_by_global_norm_(grads, cfg.max_grad_norm)
             for p, g in zip(params, grads):
@@ -452,12 +479,15 @@ class UpdatePlan(NamedTuple):
 
 
 def update_plan(cfg: PPOConfig, n: int, learn_std: bool = False,
-                plain_adam: bool = True) -> UpdatePlan:
+                plain_adam: bool = True, reduced: bool = False) -> UpdatePlan:
     """The JAX gates: the block falls back to 1 when it does not divide the
     rows and the minibatch; the kernels need the fixed std and block > 1,
     or a full batch, where the tile is min(n, 512); the Adam step goes into
-    the kernel with ``fused_adam``, no gradient clipping and a plain Adam
-    (``plain_adam``, `ops.ppo_fused.adam_takes`)."""
+    the kernel with ``fused_adam``, no gradient clipping, a plain Adam
+    (``plain_adam``, `ops.ppo_fused.adam_takes`) and no cross-rank gradient
+    reduce (``reduced``: the Adam step inside B4 would never see the
+    reduced gradient, JAX ppo.py:400-404), so under data parallelism B3
+    runs in its place."""
     mb = min(cfg.minibatch_size, n) if cfg.minibatch_size > 0 else n
     n_mb = max(n // mb, 1)
     block = max(cfg.shuffle_block, 1)
@@ -471,7 +501,7 @@ def update_plan(cfg: PPOConfig, n: int, learn_std: bool = False,
             tile = 0
     branch = "autograd"
     if tile:
-        use_adam = cfg.fused_adam and cfg.max_grad_norm == 0 and plain_adam
+        use_adam = cfg.fused_adam and cfg.max_grad_norm == 0 and plain_adam and not reduced
         branch = "fused_adam" if use_adam else "fused"
     return UpdatePlan(n, mb, n_mb, block, full_batch, branch, tile)
 
@@ -484,6 +514,7 @@ def ppo_update(
     gen: Optional[torch.Generator],
     cfg: PPOConfig,
     perms: Optional[torch.Tensor] = None,
+    grad_reduce: Optional[GradReduce] = None,
 ) -> dict:
     """K-epoch minibatched PPO update on the row-major batch (JAX
     ppo.py:338-486), in place on ``model`` and ``opt``: GAE, then per epoch
@@ -496,8 +527,10 @@ def ppo_update(
     autograd of `ppo_loss` on the gathered rows, or kernel B3 on the block
     ids (the rows are never gathered), each followed by optax's global-norm
     clip when ``max_grad_norm > 0`` and ``opt.step()``; or kernel B4, which
-    takes the Adam step itself. Returns the metrics averaged over all
-    minibatches, as 0-dim tensors (no synchronization)."""
+    takes the Adam step itself. ``grad_reduce`` takes each minibatch's
+    gradients before the clip and the step (JAX ppo.py:465-467), and keeps
+    the update off B4. Returns the metrics averaged over all minibatches,
+    as 0-dim tensors (no synchronization)."""
     returns, advantages = gae_advantages(
         roll.rewards, roll.values, roll.dones, bootstrap, cfg.gamma, cfg.gae_lambda
     )
@@ -508,7 +541,7 @@ def ppo_update(
     obs, actions, old_lp = flat(roll.obs), flat(roll.actions), flat(roll.logprobs)
     rets, advs = flat(returns), flat(advantages)
     plan = update_plan(cfg, obs.shape[0], model.learn_std or cfg.learn_std,
-                       pfr.adam_takes(opt, model))
+                       pfr.adam_takes(opt, model), reduced=grad_reduce is not None)
     n, mb, block, device = plan.n, plan.mb, plan.block, obs.device
     kernel_kw = dict(tile=plan.tile, action_std=cfg.action_std, clip_eps=cfg.clip_eps,
                      entropy_coef=cfg.entropy_coef)
@@ -552,6 +585,8 @@ def ppo_update(
                         )
                         grads = list(torch.autograd.grad(loss, params))
                     loss, metrics = loss.detach(), {k: v.detach() for k, v in metrics.items()}
+                if grad_reduce is not None:
+                    grads = grad_reduce(grads)
                 if cfg.max_grad_norm > 0:
                     clip_by_global_norm_(grads, cfg.max_grad_norm)
                 for p, g in zip(params, grads):
@@ -587,10 +622,11 @@ def train_step_from_inputs(
     ppo_cfg: PPOConfig,
     gen: Optional[torch.Generator] = None,
     perms: Optional[torch.Tensor] = None,
+    grad_reduce: Optional[GradReduce] = None,
 ) -> tuple[hover.EnvState, dict]:
     """One fully fused train step from given rollout randomness: rollout
-    kernel -> GAE -> aux packing -> `ppo_update_t`. Returns the new env
-    states and the step's metrics (0-dim tensors)."""
+    kernel -> GAE -> aux packing -> `ppo_update_t` (with ``grad_reduce``).
+    Returns the new env states and the step's metrics (0-dim tensors)."""
     new_states, obs_t, misc, bootstrap = rollout_from_inputs(
         model, env_states, noise, pool, env_cfg
     )
@@ -599,7 +635,7 @@ def train_step_from_inputs(
         rewards, misc[:, 8], dones, bootstrap, ppo_cfg.gamma, ppo_cfg.gae_lambda
     )
     aux_t = pack_aux_t(misc, returns, advs)
-    metrics = ppo_update_t(model, opt, obs_t, aux_t, gen, ppo_cfg, perms)
+    metrics = ppo_update_t(model, opt, obs_t, aux_t, gen, ppo_cfg, perms, grad_reduce)
     return new_states, _step_metrics(metrics, rewards, dones, solved)
 
 
@@ -629,6 +665,7 @@ def rowmajor_step_from_inputs(
     fresh_gust: Optional[torch.Tensor] = None,
     gust_eps: Optional[torch.Tensor] = None,
     perms: Optional[torch.Tensor] = None,
+    grad_reduce: Optional[GradReduce] = None,
 ) -> tuple[hover.EnvState, dict]:
     """One train step of the row-major branch (JAX ppo.py:649-663): the
     rollout, through the rollout kernel (`rollout_from_inputs`) where the
@@ -637,8 +674,9 @@ def rowmajor_step_from_inputs(
     the kernel's ``noise`` (T, 4, B) and packed ``pool`` (P, ROWS, B)
     (`fused_inputs`), or `rollout_batch`'s ``noise`` (T, B, 4),
     ``fresh_x0`` and under randomization ``fresh_dom``, ``fresh_gust`` and
-    ``gust_eps``; and the update's ``perms``. Returns the new env states
-    and the step's metrics (0-dim tensors)."""
+    ``gust_eps``; and the update's ``perms``. ``grad_reduce`` goes to
+    `ppo_update`. Returns the new env states and the step's metrics (0-dim
+    tensors)."""
     if uses_fused_rollout(env_cfg, ppo_cfg, train_cfg):
         if noise is None:
             _, noise, pool, _ = fused_inputs(model, env_states, gen, env_cfg,
@@ -653,16 +691,20 @@ def rowmajor_step_from_inputs(
             noise=noise, fresh_x0=fresh_x0, fresh_dom=fresh_dom, fresh_gust=fresh_gust,
             gust_eps=gust_eps,
         )
-    metrics = ppo_update(model, opt, roll, bootstrap, gen, ppo_cfg, perms)
+    metrics = ppo_update(model, opt, roll, bootstrap, gen, ppo_cfg, perms, grad_reduce)
     return new_states, _step_metrics(metrics, roll.rewards, roll.dones, roll.solved)
 
 
 def train_branch(model: ActorCritic, opt: torch.optim.Optimizer, env_cfg: EnvConfig,
-                 ppo_cfg: PPOConfig, train_cfg: TrainConfig) -> str:
+                 ppo_cfg: PPOConfig, train_cfg: TrainConfig, local_envs: Optional[int] = None,
+                 reduced: bool = False) -> str:
     """The branch the JAX package's `make_train_step` takes for these
     configs, "fused_t" or "rowmajor", after its consistency guards. A
     randomized env takes the row-major branch, since the rollout kernel
-    refuses it (`uses_fused_rollout`), as in the JAX package. Refuses what
+    refuses it (`uses_fused_rollout`), as in the JAX package. The gates
+    read the batch that one rank rolls out, ``local_envs`` (all
+    ``num_envs`` when None; JAX ppo.py:584-594, :623), and ``reduced`` (a
+    cross-rank gradient reduce) keeps the Adam step out of B4. Refuses what
     is not ported yet: bf16 products in a kernel, and, for a model on the
     card, a shape that the JAX package sends
     to a kernel the port's kernels do not take (hidden widths other than
@@ -680,12 +722,13 @@ def train_branch(model: ActorCritic, opt: torch.optim.Optimizer, env_cfg: EnvCon
             raise ValueError(
                 f"model.learn_std={model.learn_std} != ppo_cfg.learn_std={ppo_cfg.learn_std}"
             )
-    steps, b = train_cfg.rollout_steps, train_cfg.num_envs
+    steps = train_cfg.rollout_steps
+    b = train_cfg.num_envs if local_envs is None else local_envs
     fused_rollout = uses_fused_rollout(env_cfg, ppo_cfg, train_cfg)
     tile_t = update_t_tile(ppo_cfg, steps, b)
     fused_t = fused_rollout and ppo_cfg.fused_update and not ppo_cfg.fused_adam and tile_t > 0
     plan = update_plan(ppo_cfg, steps * b, model.learn_std or ppo_cfg.learn_std,
-                       pfr.adam_takes(opt, model))
+                       pfr.adam_takes(opt, model), reduced)
     kernel_update = fused_t or plan.branch != "autograd"
     if kernel_update and ppo_cfg.fused_compute != "f32":
         raise NotImplementedError(
@@ -717,18 +760,28 @@ def make_train_step(
     env_cfg: EnvConfig,
     ppo_cfg: PPOConfig,
     train_cfg: TrainConfig,
+    grad_reduce: Optional[GradReduce] = None,
+    metric_reduce: Optional[MetricReduce] = None,
+    local_envs: Optional[int] = None,
 ):
     """The train step, ``train_step(state) -> (state, metrics)``, on the
     branch `train_branch` picks: fully fused (`train_step_from_inputs`) or
     row-major (`rowmajor_step_from_inputs`), every draw from the state's
     generator.
 
+    For data parallelism (`parallel.dp`), ``grad_reduce`` averages each
+    minibatch's gradients over the ranks before the Adam step,
+    ``metric_reduce`` the step's metrics (``episodes`` too, as the JAX
+    package's pmean does), and ``local_envs`` is the envs one rank rolls
+    out, which the kernels' gates read (JAX ppo.py:572-594).
+
     ``model`` and ``opt`` are checked against the configs here; the step
     takes a state that holds these same two objects (as `ppo_init` makes
     it) and updates them in place. Metrics are 0-dim tensors: ``loss``,
     ``actor_loss``, ``critic_loss``, ``entropy``, ``ratio_max``,
     ``reward_per_step``, ``episodes`` and ``solved_frac``."""
-    branch = train_branch(model, opt, env_cfg, ppo_cfg, train_cfg)
+    branch = train_branch(model, opt, env_cfg, ppo_cfg, train_cfg, local_envs,
+                          grad_reduce is not None)
 
     def train_step(state: PPOTrainState) -> tuple[PPOTrainState, dict]:
         if state.model is not model or state.optimizer is not opt:
@@ -743,11 +796,15 @@ def make_train_step(
             )
             env_states, metrics = train_step_from_inputs(
                 model, opt, state.env_states, noise, pool, env_cfg, ppo_cfg, state.gen,
+                grad_reduce=grad_reduce,
             )
         else:
             env_states, metrics = rowmajor_step_from_inputs(
                 model, opt, state.env_states, env_cfg, ppo_cfg, train_cfg, state.gen,
+                grad_reduce=grad_reduce,
             )
+        if metric_reduce is not None:
+            metrics = metric_reduce(metrics)
         return dataclasses.replace(
             state, env_states=env_states, update_i=state.update_i + 1
         ), metrics
@@ -762,10 +819,15 @@ def make_train_loop(
     ppo_cfg: PPOConfig,
     train_cfg: TrainConfig,
     inner: int,
+    grad_reduce: Optional[GradReduce] = None,
+    metric_reduce: Optional[MetricReduce] = None,
+    local_envs: Optional[int] = None,
 ):
     """`inner` sequential train steps: ``train_loop(state) -> (state,
-    metrics)`` with each metric stacked to shape (inner,)."""
-    step = make_train_step(model, opt, env_cfg, ppo_cfg, train_cfg)
+    metrics)`` with each metric stacked to shape (inner,); the reduces and
+    ``local_envs`` as `make_train_step` takes them."""
+    step = make_train_step(model, opt, env_cfg, ppo_cfg, train_cfg, grad_reduce,
+                           metric_reduce, local_envs)
 
     def train_loop(state: PPOTrainState) -> tuple[PPOTrainState, dict]:
         rows = []
@@ -787,13 +849,15 @@ FLY_CHUNK = 64  # eval steps per graph replay, between checks that every episode
 
 @torch.no_grad()
 def _fly(model: ActorCritic, env_cfg: EnvConfig, max_steps: int, states: hover.EnvState,
-         gen: Optional[torch.Generator], gust_eps: Optional[torch.Tensor]) -> dict:
+         gen, gust_eps: Optional[torch.Tensor]) -> dict:
     """Fly every env of ``states`` with the actor mean through `hover.step`
     for up to ``max_steps`` steps and return per-episode tensors: the
     records of `make_forensic_eval_fn`, of which `make_eval_fn` reports the
     means. Each step's gust draw is ``gust_eps[i]`` (max_steps, B, 3) or
     drawn from ``gen`` before the chunk of steps it falls in, with
-    `hover.step`'s own call, in step order. The steps run in chunks of
+    `hover.step`'s own call, in step order; ``gen`` may be a list of
+    generators, one per equal slice of the batch (the seeds of a stacked
+    study, `agents.multiseed`), each drawing its slice's. The steps run in chunks of
     FLY_CHUNK, each on the card one CUDA graph replay (`utils.graphs.scan`);
     the loop stops before a chunk once every episode has finished, which
     changes nothing: finished episodes add nothing."""
@@ -809,9 +873,12 @@ def _fly(model: ActorCritic, env_cfg: EnvConfig, max_steps: int, states: hover.E
         if gen is None:
             raise ValueError("a randomized eval needs gust_eps or a generator to draw it from")
 
+        gens = list(gen) if isinstance(gen, (list, tuple)) else [gen]
+
         def xs(i0, n):
-            return torch.stack([torch.randn(b, 3, generator=gen, dtype=states.x.dtype,
-                                            device=gen.device) for _ in range(n)])
+            return torch.cat([torch.stack([
+                torch.randn(b // len(gens), 3, generator=g, dtype=states.x.dtype, device=g.device)
+                for _ in range(n)]) for g in gens], dim=1)
     (_, acc), _ = graphs.scan(
         ("fly", id(model), env_cfg, max_steps),
         lambda carry, i, eps, _: (_fly_step(model, env_cfg, max_steps // 5, carry, i, eps), None),

@@ -7,6 +7,15 @@ deterministic eval, CSV and JSONL logs, and untrained / solved / final
 checkpoints in the JAX package's format. It runs on the CUDA card unless
 given ``--device cpu``.
 
+``--dp N`` trains data-parallel over N ranks (`parallel.launch.spawn`):
+one CUDA card each over NCCL, or N processes on the CPU over gloo with
+``--device cpu``. Every rank holds the same model and optimizer and rolls
+out ``--num-envs / N`` envs; each minibatch's gradients and each update's
+metrics are averaged over the ranks (the CSV's episode count is that mean,
+as in the JAX package). Rank 0 evaluates (from the stream the serial run
+uses) and writes the logs and checkpoints, and broadcasts each stop
+decision, so every rank leaves the loop at the same update.
+
 Example:
     python -m autonomous_quadrotor_environment_tpu_torch.apps.train_control \\
         --robust --severity-sample --seed 0 --updates 2000 --out runs/ctrl_robust
@@ -16,19 +25,29 @@ from __future__ import annotations
 
 import argparse
 import math
+import sys
 import time
 from datetime import datetime
 
-import numpy as np
 import torch
 
 from ..agents.networks import ActorCritic, to_flax
-from ..agents.ppo import PPOTrainState, make_eval_fn, make_train_loop, make_train_step, ppo_init
+from ..agents.ppo import (
+    PPOTrainState,
+    make_eval_fn,
+    make_train_loop,
+    make_train_step,
+    ppo_init,
+    stream,
+)
 from ..config import EnvConfig, PPOConfig, RandomizationConfig, TrainConfig
 from ..device import resolve_device
 from ..envs import hover
+from ..parallel import dp
+from ..parallel.launch import rank_devices, spawn
 from ..utils import TRAIN_LOG_HEADER, CSVLogger, JSONLLogger, load_params, save_params
 from ..utils.cache import enable_compilation_cache
+from ..utils.graphs import counted_launches
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -65,7 +84,9 @@ def build_parser() -> argparse.ArgumentParser:
         "clamped to gcd(--inner, --eval-every, per-stage updates); training is identical "
         "to --inner 1, logging reads each chunk's last update",
     )
-    p.add_argument("--dp", type=int, default=0, help="data-parallel devices (0 = single)")
+    p.add_argument("--dp", type=int, default=0,
+                   help="data-parallel ranks (0 = single process): one CUDA card each, or "
+                   "processes on the CPU with --device cpu")
     p.add_argument("--out", type=str, default="runs/control")
     p.add_argument("--solved-threshold", type=float, default=0.95)
     p.add_argument("--resume-from", type=str, default=None, metavar="CKPT",
@@ -83,22 +104,33 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def stream(seed: int, *tags: int) -> int:
-    """A 64-bit generator seed for the stream ``tags`` of run ``seed``: the
-    JAX package's `fold_in` of the run key, as a seed."""
-    return int(np.random.SeedSequence([seed, *tags]).generate_state(1, np.uint64)[0])
-
-
 _STAGE, _EVAL = 1, 2  # stream tags
 _CONFIRM = 10**6  # the polish gate's confirming evals: stream (seed, _EVAL, _CONFIRM + i)
 
 
 def main(argv=None) -> dict:
     enable_compilation_cache()
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
     if args.dp > 0:
-        raise NotImplementedError("--dp is not ported yet (ROADMAP A16)")
-    device = resolve_device(args.device)
+        devices, backend = rank_devices(args.dp, args.device)
+        ranks = spawn(_dp_rank, devices, backend, (argv,))
+        return {**ranks[0]["result"], "ranks": [r["launches"] for r in ranks]}
+    return train(args, resolve_device(args.device))
+
+
+def _dp_rank(mesh: dp.DPMesh, argv: list) -> dict:
+    """One rank of ``--dp``: its share of the training, rank 0's result,
+    and the rank's kernel launches."""
+    enable_compilation_cache()
+    result = train(build_parser().parse_args(argv), mesh.device, mesh)
+    return {"result": result, "launches": counted_launches()}
+
+
+def train(args, device: torch.device, mesh: dp.DPMesh = None) -> dict:
+    """The training run of ``args`` on ``device``, or as this rank of the
+    data-parallel ``mesh``."""
+    lead = mesh is None or mesh.rank == 0  # evaluates, logs and saves
     vel_max = (args.vel_target_max,) * 3 if args.task == "velocity" else (0.0, 0.0, 0.0)
 
     def stage_env_cfg(severity: float) -> EnvConfig:
@@ -127,8 +159,12 @@ def main(argv=None) -> dict:
         updates=args.updates, eval_every=args.eval_every, eval_episodes=args.eval_episodes,
         seed=args.seed,
     )
-    model, opt, state = ppo_init(args.seed, stage_env_cfg(severities[0]), ppo_cfg, train_cfg,
-                                 device=device)
+    if mesh is None:
+        model, opt, state = ppo_init(args.seed, stage_env_cfg(severities[0]), ppo_cfg, train_cfg,
+                                     device=device)
+    else:
+        model, opt, state = dp.ppo_init_sharded(args.seed, stage_env_cfg(severities[0]), ppo_cfg,
+                                                train_cfg, mesh)
     if args.resume_from:
         loaded = ActorCritic.from_flax(load_params(args.resume_from))
         if loaded.hidden != model.hidden:
@@ -138,12 +174,17 @@ def main(argv=None) -> dict:
             for p, q in zip(model.linears(), loaded.linears()):
                 p.weight.copy_(q.weight)
                 p.bias.copy_(q.bias)
-        print(f"resumed params from {args.resume_from}")
+        if lead:
+            print(f"resumed params from {args.resume_from}")
 
     def build(cfg: EnvConfig):
         """The train step (and `inner`-step loop) for a stage's env config;
         the model and optimizer are the same objects at every stage, so
         Adam's state (keyed by the parameters) carries over."""
+        if mesh is not None:
+            return (dp.make_parallel_train_step(model, opt, cfg, ppo_cfg, train_cfg, mesh),
+                    dp.make_parallel_train_loop(model, opt, cfg, ppo_cfg, train_cfg, mesh, inner)
+                    if inner > 1 else None)
         step = make_train_step(model, opt, cfg, ppo_cfg, train_cfg)
         loop = make_train_loop(model, opt, cfg, ppo_cfg, train_cfg, inner) if inner > 1 else None
         return step, loop
@@ -157,7 +198,7 @@ def main(argv=None) -> dict:
     # the deterministic actor and scored by the reference analyzer's success
     # criterion (classical_compare); checked at every eval.
     polish = {}
-    if args.polish:
+    if args.polish and lead:
         from .classical_compare import analyze, leg_env, make_rl_runner, reference_start_states
 
         polish_cfg = leg_env("rl")
@@ -168,8 +209,9 @@ def main(argv=None) -> dict:
             return analyze(rl_runner(polish_starts), polish_cfg)["success_rate"]
 
     tag = f"{args.size}_{args.seed}"
-    csv_log = CSVLogger(f"{args.out}/log_{tag}.csv", TRAIN_LOG_HEADER)
-    jsonl = JSONLLogger(f"{args.out}/train_{tag}.jsonl")
+    if lead:
+        csv_log = CSVLogger(f"{args.out}/log_{tag}.csv", TRAIN_LOG_HEADER)
+        jsonl = JSONLLogger(f"{args.out}/train_{tag}.jsonl")
     t0 = time.time()
     total_steps = 0
     total_eps_dev = None  # summed on the device: no sync per update
@@ -181,15 +223,21 @@ def main(argv=None) -> dict:
         if next_stage != stage_i:
             stage_i = next_stage
             sev = severities[stage_i]
-            print(f"== curriculum stage {stage_i}: severity {sev:.2f} ==")
+            if lead:
+                print(f"== curriculum stage {stage_i}: severity {sev:.2f} ==")
             cfg = stage_env_cfg(sev)
             train_step, train_loop = build(cfg)
             # The env batch is reset under the stage's config from a stream
-            # of its own; model, optimizer and update count carry over.
+            # of its own (each rank keeping its slice); model, optimizer and
+            # update count carry over.
             gen = torch.Generator(device=device).manual_seed(stream(args.seed, _STAGE, stage_i))
-            state = PPOTrainState(model=model, optimizer=opt,
-                                  env_states=hover.reset(gen, cfg, n=train_cfg.num_envs),
-                                  gen=gen, update_i=state.update_i)
+            if mesh is None:
+                env_states = hover.reset(gen, cfg, n=train_cfg.num_envs)
+            else:
+                env_states, gen = dp.reset_sharded(gen, cfg, train_cfg.num_envs, mesh, args.seed,
+                                                   _STAGE, stage_i)
+            state = PPOTrainState(model=model, optimizer=opt, env_states=env_states, gen=gen,
+                                  update_i=state.update_i)
         if train_loop is not None and args.updates - i >= inner:
             state, stacked = train_loop(state)
             metrics = {k: v[-1] for k, v in stacked.items()}
@@ -202,7 +250,10 @@ def main(argv=None) -> dict:
         i += chunk
         total_steps += chunk * train_cfg.num_envs * train_cfg.rollout_steps
         total_eps_dev = chunk_eps if total_eps_dev is None else total_eps_dev + chunk_eps
-        if i % args.eval_every == 0:
+        if i % args.eval_every == 0 and not lead:
+            if mesh.broadcast_flag(False):  # rank 0's decision to stop
+                break
+        elif i % args.eval_every == 0:
             total_eps = int(total_eps_dev)
             gen = torch.Generator(device=device).manual_seed(stream(args.seed, _EVAL, i))
             last_eval = {k: float(v) for k, v in eval_fn(gen).items()}
@@ -233,6 +284,7 @@ def main(argv=None) -> dict:
             solved_metric = (
                 last_eval["eval_station_keeping"] if args.robust else last_eval["eval_solved"]
             )
+            stop = False
             if args.polish:
                 # Polish acceptance: 20/20 on the reference's same-start
                 # classical leg AND 100% eval AND a confirming eval from an
@@ -247,12 +299,18 @@ def main(argv=None) -> dict:
                     if confirm >= 0.95:
                         save_params(f"{args.out}/solved/nn_solved_{tag}.msgpack", to_flax(model))
                         print("########## Polished: classical 20/20 + eval 100% ##########")
-                        break
+                        stop = True
             elif stage_i == len(severities) - 1 and solved_metric >= args.solved_threshold:
                 save_params(f"{args.out}/solved/nn_solved_{tag}.msgpack", to_flax(model))
                 print("########## Solved! ##########")
+                stop = True
+            if mesh is not None:
+                mesh.broadcast_flag(stop)
+            if stop:
                 break
 
+    if not lead:
+        return {}
     save_params(f"{args.out}/nn_final_{tag}.msgpack", to_flax(model))
     return {"final_eval": last_eval, "total_steps": total_steps, "wall_s": time.time() - t0,
             **{f"polish_{k}": v for k, v in polish.items()}}

@@ -12,8 +12,11 @@ The defaults are the JAX package's certified configuration: float32
 rollout images, bf16 convolutions, the reference's per-row shuffle and the
 space-to-depth first conv. The eval after update i draws from a generator
 seeded with ``seed * 2**32 + i``, where the JAX package folds i into
-``PRNGKey(seed)``. ``--dp`` (data parallel over cards) is not ported
-(ROADMAP A16).
+``PRNGKey(seed)``. ``--dp N`` trains data-parallel over N ranks
+(`parallel.dp_landing`: one CUDA card each over NCCL, or processes on the
+CPU over gloo with ``--device cpu``), ``--num-envs / N`` envs a rank, each
+minibatch's gradients averaged over the ranks; rank 0 evaluates and writes
+the log and checkpoints.
 
 Example:
     python -m autonomous_quadrotor_environment_tpu_torch.apps.train_landing \\
@@ -26,6 +29,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import math
+import sys
 import time
 
 import torch
@@ -46,8 +50,12 @@ from ..landing.ppo import (
     make_landing_train_loop,
     make_landing_train_step,
 )
+from ..parallel import dp_landing
+from ..parallel.dp import DPMesh
+from ..parallel.launch import rank_devices, spawn
 from ..utils import JSONLLogger, load_params, save_params
 from ..utils.cache import enable_compilation_cache
+from ..utils.graphs import counted_launches
 from .eval_landing import load_controller
 
 CONV_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
@@ -71,7 +79,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="train steps per `make_landing_train_loop` call between evals; "
                    "clamped to gcd(--inner, --eval-every); the same updates as --inner 1")
     p.add_argument("--dp", type=int, default=0,
-                   help="data-parallel devices (0 = single); not ported (ROADMAP A16)")
+                   help="data-parallel ranks (0 = single process): one CUDA card each, or "
+                   "processes on the CPU with --device cpu")
     p.add_argument("--image-dtype", type=str, default="f32", choices=tuple(IMAGE_DTYPES),
                    help="rollout image storage dtype; uint8 (clip(round(x * 255))) was "
                    "unstable over long training in the JAX package, f32 is certified")
@@ -117,11 +126,27 @@ def _resume(model: LandingActorCritic, path: str, conv_s2d: bool) -> None:
 
 def main(argv=None) -> dict:
     enable_compilation_cache()
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
     if args.dp > 0:
-        raise NotImplementedError(
-            "--dp (data-parallel landing training) is not ported yet (ROADMAP A16)")
-    device = resolve_device(args.device)
+        devices, backend = rank_devices(args.dp, args.device)
+        ranks = spawn(_dp_rank, devices, backend, (argv,))
+        return {**ranks[0]["result"], "ranks": [r["launches"] for r in ranks]}
+    return train(args, resolve_device(args.device))
+
+
+def _dp_rank(mesh: DPMesh, argv: list) -> dict:
+    """One rank of ``--dp``: its share of the training, rank 0's result,
+    and the rank's kernel launches."""
+    enable_compilation_cache()
+    result = train(build_parser().parse_args(argv), mesh.device, mesh)
+    return {"result": result, "launches": counted_launches()}
+
+
+def train(args, device: torch.device, mesh: DPMesh = None) -> dict:
+    """The training run of ``args`` on ``device``, or as this rank of the
+    data-parallel ``mesh`` (rank 0 evaluates, logs and saves)."""
+    lead = mesh is None or mesh.rank == 0
     # float32 means float32: cuDNN and cuBLAS would run f32 products in TF32.
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -139,19 +164,30 @@ def main(argv=None) -> dict:
     inner = max(args.inner, 1)
     if inner > 1:
         inner = max(math.gcd(inner, args.eval_every), 1)
-    model, opt, state = landing_ppo_init(
-        args.seed, cfgs, ppo_cfg, args.num_envs, ctrl, conv_dtype=CONV_DTYPES[args.conv_dtype],
-        conv_s2d=args.conv_s2d, device=device)
+    conv = dict(conv_dtype=CONV_DTYPES[args.conv_dtype], conv_s2d=args.conv_s2d)
+    train_loop = None
+    if mesh is None:
+        model, opt, state = landing_ppo_init(args.seed, cfgs, ppo_cfg, args.num_envs, ctrl,
+                                             device=device, **conv)
+        train_step = make_landing_train_step(model, opt, cfgs, ppo_cfg, ctrl, args.rollout_steps,
+                                             image_dtype=image_dtype)
+        if inner > 1:
+            train_loop = make_landing_train_loop(model, opt, cfgs, ppo_cfg, ctrl,
+                                                 args.rollout_steps, inner,
+                                                 image_dtype=image_dtype)
+    else:
+        model, opt, state = dp_landing.landing_ppo_init_sharded(
+            args.seed, cfgs, ppo_cfg, args.num_envs, ctrl, mesh, **conv)
+        train_step = dp_landing.make_landing_parallel_train_step(
+            model, opt, cfgs, ppo_cfg, ctrl, args.rollout_steps, mesh, image_dtype=image_dtype)
+        if inner > 1:
+            train_loop = dp_landing.make_landing_parallel_train_loop(
+                model, opt, cfgs, ppo_cfg, ctrl, args.rollout_steps, mesh, inner,
+                image_dtype=image_dtype)
     if args.resume:
         _resume(model, args.resume, args.conv_s2d)
-    train_step = make_landing_train_step(model, opt, cfgs, ppo_cfg, ctrl, args.rollout_steps,
-                                         image_dtype=image_dtype)
-    train_loop = None
-    if inner > 1:
-        train_loop = make_landing_train_loop(model, opt, cfgs, ppo_cfg, ctrl,
-                                             args.rollout_steps, inner, image_dtype=image_dtype)
     eval_fn = make_landing_eval_fn(model, cfgs, ctrl, args.eval_episodes)
-    jsonl = JSONLLogger(f"{args.out}/train_landing_{args.seed}.jsonl")
+    jsonl = JSONLLogger(f"{args.out}/train_landing_{args.seed}.jsonl") if lead else None
     t0 = time.time()
     last_eval: dict = {}
     # The best-eval checkpoint (the reference saves the solved network the
@@ -167,7 +203,7 @@ def main(argv=None) -> dict:
         else:
             state, metrics = train_step(state)
             i += 1
-        if i % args.eval_every == 0:
+        if i % args.eval_every == 0 and lead:
             gen = torch.Generator(device=device).manual_seed(args.seed * 2**32 + i)
             last_eval = {k: float(v) for k, v in eval_fn(gen).items()}
             jsonl.log(update=i, **last_eval, **{k: float(v) for k, v in metrics.items()})
@@ -180,6 +216,8 @@ def main(argv=None) -> dict:
             if score > best:
                 best = score
                 save_params(f"{args.out}/PPO_landing_best_{args.seed}.msgpack", to_flax(model))
+    if not lead:
+        return {}
     save_params(f"{args.out}/PPO_landing_{args.seed}.msgpack", to_flax(model))
     return {"final_eval": last_eval, "best_eval_solved": best[0], "wall_s": time.time() - t0}
 

@@ -217,6 +217,43 @@ def step(state: EnvState, action: torch.Tensor, cfg: EnvConfig,
     return new_state, out
 
 
+class ResetDraws(NamedTuple):
+    """Everything `reset` takes for ``n`` fresh episodes, in the order it
+    draws them: ``x0`` (n, 13), a velocity task's ``vel_u`` (n, 3) ~ U[0,
+    1), and under randomization ``dom`` (`DomainDraws`) and ``warmup_gust``
+    (warmup, n, 3); None where the config takes nothing."""
+
+    x0: torch.Tensor
+    vel_u: Optional[torch.Tensor]
+    dom: Optional[DomainDraws]
+    warmup_gust: Optional[torch.Tensor]
+
+
+def reset_draws(gen: Optional[torch.Generator], cfg: EnvConfig, n: Optional[int] = None,
+                dtype=torch.float32, x0: Optional[torch.Tensor] = None,
+                vel_u: Optional[torch.Tensor] = None, dom: Optional[DomainDraws] = None,
+                warmup_gust: Optional[torch.Tensor] = None) -> ResetDraws:
+    """`reset`'s draws for ``n`` episodes (or one per row of ``x0``): each
+    one given, else drawn from ``gen`` in this order: the initial states, a
+    velocity task's target draws, under randomization the domains and the
+    warmup steps' gusts."""
+    if x0 is None:
+        x0 = random_initial_state(gen, n, dtype)
+    n = x0.shape[0]
+    if cfg.has_vel_target and vel_u is None:
+        vel_u = torch.rand(n, 3, generator=gen, dtype=dtype, device=x0.device)
+    if cfg.randomization.enabled:
+        if gen is None and (dom is None or (cfg.warmup > 0 and warmup_gust is None)):
+            raise ValueError("a randomized reset needs its domain and warmup gust draws "
+                             "or a generator")
+        if dom is None:
+            dom = DomainDraws.draw(gen, n, cfg.randomization.severity_sample, dtype)
+        if cfg.warmup > 0 and warmup_gust is None:
+            warmup_gust = torch.randn(cfg.warmup, n, 3, generator=gen, dtype=dtype,
+                                      device=gen.device)
+    return ResetDraws(x0, vel_u, dom, warmup_gust)
+
+
 def reset(
     gen: Optional[torch.Generator],
     cfg: EnvConfig,
@@ -225,37 +262,31 @@ def reset(
     dtype=torch.float32,
     dom_draws: Optional[DomainDraws] = None,
     warmup_gust: Optional[torch.Tensor] = None,
+    vel_u: Optional[torch.Tensor] = None,
 ) -> EnvState:
     """Start ``n`` new episodes (or one per row of ``det_state`` (B, 13)) and
-    run the warmup steps with the neutral action. ``gen`` draws, in this
-    order and each only where it is not given: the initial states, a
-    velocity task's targets, and under randomization the domains
-    (``dom_draws``, `sample_domain`) and the warmup steps' gust draws
-    ``warmup_gust`` (warmup, B, 3). The first warmup step (i = 1) resamples
-    the gust, so a fresh episode's wind depends on its warmup draw."""
-    if det_state is None:
-        x0 = random_initial_state(gen, n, dtype)
-    else:
-        x0 = det_state.to(dtype)
-    n = x0.shape[0]
+    run the warmup steps with the neutral action, from `reset_draws`: the
+    initial states, a velocity task's target draws ``vel_u`` (B, 3), under
+    randomization the domains' draws ``dom_draws`` (`sample_domain`) and
+    the warmup steps' gust draws ``warmup_gust`` (warmup, B, 3), each drawn
+    from ``gen`` where it is not given. The first warmup step (i = 1)
+    resamples the gust, so a fresh episode's wind depends on its warmup
+    draw."""
+    d = reset_draws(gen, cfg, n, dtype, None if det_state is None else det_state.to(dtype),
+                    vel_u, dom_draws, warmup_gust)
+    x0, n = d.x0, d.x0.shape[0]
     vel_target = None
     if cfg.has_vel_target:
         vmax = const(tuple(cfg.vel_target_max), dtype, x0.device)
-        u = torch.rand(n, 3, generator=gen, dtype=dtype, device=x0.device)
-        vel_target = (u * 2.0 - 1.0) * vmax
-    dom = sample_domain(cfg.randomization, n, gen, dom_draws, dtype, x0.device)
+        vel_target = (d.vel_u.to(dtype) * 2.0 - 1.0) * vmax
+    dom = sample_domain(cfg.randomization, n, None, d.dom, dtype, x0.device)
     state = _raw_state(x0, cfg.hist_t, vel_target, dom)
 
     if cfg.warmup > 0:
-        if cfg.randomization.enabled and warmup_gust is None:
-            if gen is None:
-                raise ValueError("a randomized reset needs warmup_gust or a generator")
-            warmup_gust = torch.randn(cfg.warmup, n, 3, generator=gen, dtype=dtype,
-                                      device=gen.device)
         zc = zero_control(cfg, dtype, x0.device).expand(n, 4)
         for w in range(cfg.warmup):
             state, _out = step(state, zc, cfg,
-                               gust_eps=None if warmup_gust is None else warmup_gust[w])
+                               gust_eps=None if d.warmup_gust is None else d.warmup_gust[w])
         # Warmup must not leave terminal flags set for the agent's episode.
         falses = torch.zeros_like(state.done)
         state = state.replace(done=falses, solved=falses)

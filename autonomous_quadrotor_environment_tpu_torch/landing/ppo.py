@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, NamedTuple, Optional
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
@@ -328,12 +328,15 @@ def landing_update(
     gen: Optional[torch.Generator],
     cfg: PPOConfig,
     draws: Optional[UpdateDraws] = None,
+    grad_reduce: Optional[Callable[[list], list]] = None,
 ) -> dict:
     """GAE, then K epochs of minibatched Adam steps on autograd gradients of
     `landing_loss`, in place on ``model`` and ``opt`` (JAX
     landing/ppo.py:258-352): per-row or block shuffles, the full-batch
-    path, and the per-update and per-epoch row reshuffles. Returns the
-    metrics averaged over every minibatch, as 0-d tensors."""
+    path, and the per-update and per-epoch row reshuffles. ``grad_reduce``
+    (the cross-rank mean of `parallel.dp`) takes each minibatch's gradients
+    before the step (JAX landing/ppo.py:342-343). Returns the metrics
+    averaged over every minibatch, as 0-d tensors."""
     returns, advs = gae_advantages(roll.rewards, roll.values, roll.dones, bootstrap,
                                    cfg.gamma, cfg.gae_lambda)
     flat = lambda x: x.reshape((-1,) + x.shape[2:])
@@ -360,7 +363,9 @@ def landing_update(
         for idx in ([None] if plan.full_batch else draws.perms[epoch]):
             with torch.enable_grad():
                 loss, metrics = landing_loss(model, *(take(x, idx) for x in data), cfg)
-                grads = torch.autograd.grad(loss, params)
+                grads = list(torch.autograd.grad(loss, params))
+            if grad_reduce is not None:
+                grads = grad_reduce(grads)
             for p, g in zip(params, grads):
                 p.grad = g
             opt.step()
@@ -380,6 +385,8 @@ def make_landing_train_step(
     rollout_steps: int,
     reset_pool: int = 2,
     image_dtype=None,
+    grad_reduce: Optional[Callable[[list], list]] = None,
+    metric_reduce: Optional[Callable[[dict], dict]] = None,
 ):
     """The train step ``train_step(state, rollout_draws=None,
     update_draws=None) -> (state, metrics)``: a rollout, GAE and the K-epoch
@@ -388,7 +395,9 @@ def make_landing_train_step(
     place. Metrics are 0-d tensors: loss, actor_loss, critic_loss,
     entropy, reward_per_decision, episodes and solved_frac. At its first
     call it prints a notice when the plan is frozen-composition (JAX
-    landing/ppo.py:300-315)."""
+    landing/ppo.py:300-315). For data parallelism ``grad_reduce`` averages
+    each minibatch's gradients over the ranks and ``metric_reduce`` the
+    step's metrics (JAX landing/ppo.py:246-247, :366-367)."""
     noticed = []
 
     def train_step(state: LandingTrainState, rollout_draws: Optional[RolloutDraws] = None,
@@ -404,11 +413,14 @@ def make_landing_train_step(
             noticed.append(True)
             print(f"landing PPO: shuffle_block == minibatch ({plan.mb}) -> frozen minibatch "
                   "composition (only block order permutes per epoch)", flush=True)
-        metrics = landing_update(model, opt, roll, bootstrap, state.gen, ppo_cfg, update_draws)
+        metrics = landing_update(model, opt, roll, bootstrap, state.gen, ppo_cfg, update_draws,
+                                 grad_reduce)
         done_f = roll.dones.float()
         metrics["reward_per_decision"] = roll.rewards.mean()
         metrics["episodes"] = done_f.sum()
         metrics["solved_frac"] = roll.solved.float().sum() / torch.clamp_min(done_f.sum(), 1.0)
+        if metric_reduce is not None:
+            metrics = metric_reduce(metrics)
         return dataclasses.replace(state, env_states=env_states, obs=obs,
                                    update_i=state.update_i + 1), metrics
 
@@ -425,12 +437,14 @@ def make_landing_train_loop(
     inner: int,
     reset_pool: int = 2,
     image_dtype=None,
+    grad_reduce: Optional[Callable[[list], list]] = None,
+    metric_reduce: Optional[Callable[[dict], dict]] = None,
 ):
     """``inner`` sequential train steps: ``train_loop(state) -> (state,
     metrics)`` with each metric stacked to shape (inner,), as the JAX
     package's scan returns them."""
     step = make_landing_train_step(model, opt, cfgs, ppo_cfg, ctrl_model, rollout_steps,
-                                   reset_pool, image_dtype)
+                                   reset_pool, image_dtype, grad_reduce, metric_reduce)
 
     def train_loop(state: LandingTrainState):
         rows = []

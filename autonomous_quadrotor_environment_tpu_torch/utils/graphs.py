@@ -73,6 +73,12 @@ def _counted() -> tuple:
             render_kernel.render_nadir_batch)
 
 
+def counted_launches() -> dict:
+    """Each counted kernel's launches in this process so far, by its
+    wrapper's name."""
+    return {k.__name__: k.launches for k in _counted()}
+
+
 class Graph:
     """``fn(*args)`` as one CUDA graph, for inputs of the shapes, dtypes and
     device of ``args`` (trees of tensors); ``params`` are tensors that ``fn``

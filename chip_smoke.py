@@ -151,6 +151,27 @@ It imports nothing of JAX. Each phase prints one flushed JSON line:
    `watch --once` over a `train_control` JSONL; `forward_bench`'s rows with
    the card's name and power limit.
 
+27. dp: data-parallel train steps (`parallel.dp`) on every card, one rank
+   each over NCCL, and on a machine of one card also on 2 ranks of it over
+   gloo (`dp_worlds`), the kernels built first here and the ranks started
+   by `parallel.launch.spawn`: per rank 3 fully fused steps at bench.py's
+   global shape (1 B1 and 40 B2 launches a step) and 3 row-major steps at
+   the trainer's defaults with fused_update and fused_adam (10 B3, no B4:
+   the Adam step inside B4 would not see the reduced gradient); parameters
+   equal on every rank after every step; the averaged gradient of one
+   minibatch within 1e-4 relative Frobenius of the single-process
+   gradient of all ranks' rows; warm ms per step.
+28. dp_cli: `train_control --dp <cards> --robust --curriculum 0,1` (4
+   updates) and `train_landing --dp <cards>` (2 updates at its defaults):
+   files, checkpoints read back, B5's launches per rank.
+29. stacked: S = 4 seeds at the trainer's defaults through
+   `agents.multiseed`: the init bit-equal to `ppo_init` per seed, one
+   stacked update against 4 serial ones, graphs against eager bit-equal,
+   no kernel launch; warm ms per stacked update at S = 1, 4 and 30 against
+   train_rowmajor's serial update; micro `seed_study`, `lr_sweep` and
+   `size_sweep`, --stacked and serial; the seed-parallel loop over the dp
+   world with the collectives patched to raise.
+
 The step loops of the trainer's rollout (`rollout_batch`), its eval
 (`_fly`), the landing interval and the classical, mission (the hybrid one
 too), live-mission and step-response runners replay CUDA graphs on the
@@ -2883,6 +2904,486 @@ def phase_apps() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Data parallelism over ranks, and the stacked seed studies
+# ---------------------------------------------------------------------------
+
+DP_TIMEOUT, DP_DEADLINE = 600.0, 900.0  # each collective's wait; a world's whole run
+DP_STEPS = 3
+
+
+def dp_worlds() -> list:
+    """The worlds of the dp phase: every card, one rank each over NCCL; on
+    a machine of one card also 2 ranks on it over gloo (which reduces CUDA
+    tensors through the host), so that a real reduction runs."""
+    n = torch.cuda.device_count()
+    worlds = [([f"cuda:{r}" for r in range(n)], "nccl")]
+    if n == 1:
+        worlds.append((["cuda:0", "cuda:0"], "gloo"))
+    return worlds
+
+
+def _dp_steps(mesh, step, state, model, want: dict) -> dict:
+    """DP_STEPS dp train steps on this rank, each with every launch counter
+    set to 0 just before and read just after, and the parameters held equal
+    on every rank after each."""
+    step_ms, launches, same = [], [], []
+    for _ in range(DP_STEPS):
+        sync()
+        zero_counters()
+        t = time.perf_counter()
+        state, metrics = step(state)
+        sync()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        launches.append(read_counters())
+        same.append(mesh.same_everywhere(list(model.parameters())))
+    return {"state": state, "step_ms": step_ms, "warm_step_ms": sum(step_ms[1:]) / (DP_STEPS - 1),
+            "launches_per_step": launches, "want": want, "params_equal_per_step": same,
+            "metrics": {k: v.item() for k, v in metrics.items()}}
+
+
+def _dp_grad_check(mesh, model, grads: list, obs: torch.Tensor, aux: torch.Tensor) -> dict:
+    """The mean over the ranks of one minibatch's kernel gradients
+    (``grads``, this rank's from its rows ``obs`` (mb, 75), ``aux`` (mb,
+    8)) against the plain gradient of all ranks' rows in one process (rank
+    0, autograd of `ppo_loss`): relative Frobenius error per leaf. The rows
+    cross as one zero-padded buffer summed over the ranks."""
+    import torch.distributed as dist
+
+    avg = mesh.mean(grads)
+    rows = torch.cat([obs, aux], dim=1)
+    buf = torch.zeros((mesh.size,) + tuple(rows.shape), device=rows.device)
+    buf[mesh.rank] = rows
+    dist.all_reduce(buf, group=mesh.group)
+    if mesh.rank != 0:
+        return {}
+    every = buf.reshape(-1, rows.shape[1])
+    _, _, full = pf.grads_on_rows(model, every[:, :pf.OBS].contiguous(),
+                                  every[:, pf.OBS:].contiguous(), action_std=ACTION_STD,
+                                  clip_eps=CLIP_EPS, entropy_coef=ENTROPY_COEF)
+    errs = [rel_fro(a, b) for a, b in zip(avg, full)]
+    return {"rows": int(every.shape[0]), "grad_rel_fro_per_leaf": errs,
+            "grad_rel_fro_max": max(errs)}
+
+
+def dp_rank(mesh) -> dict:
+    """One rank of a dp world: 3 fully fused dp steps at bench.py's global
+    shape (its envs a 1/world slice, quarter-batch minibatches of its rows)
+    and 3 row-major dp steps at the trainer's defaults with fused_update and
+    fused_adam (B3 runs, B4 must not: the Adam step cannot see the reduced
+    gradient), each followed by the averaged gradient of one minibatch
+    against the single-process gradient of the same rows."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from autonomous_quadrotor_environment_tpu_torch.parallel import dp
+
+    out = {"rank": mesh.rank, "world": mesh.size, "device": str(mesh.device),
+           "device_name": torch.cuda.get_device_name(mesh.device)}
+    env_cfg, pcfg, tcfg = bench_configs()
+    local = BENCH_B // mesh.size
+    pcfg = dataclasses.replace(pcfg, minibatch_size=local * BENCH_T // 4)
+    model, opt, state = dp.ppo_init_sharded(1, env_cfg, pcfg, tcfg, mesh)
+    branch = ppo.train_branch(model, opt, env_cfg, pcfg, tcfg, local, reduced=True)
+    step = dp.make_parallel_train_step(model, opt, env_cfg, pcfg, tcfg, mesh)
+    fused = _dp_steps(mesh, step, state, model,
+                      launches_want(rollout_fused=1, ppo_fused_t=BENCH_K * 4))
+    state = fused.pop("state")
+    _, noise, pool, _ = fused_inputs(model, state.env_states, state.gen, env_cfg, BENCH_T,
+                                     BENCH_P)
+    _, obs_t, misc, boot = ppo.rollout_from_inputs(model, state.env_states, noise, pool, env_cfg)
+    returns, advs = gae_advantages(misc[:, 9], misc[:, 8], misc[:, 10] > 0.5, boot,
+                                   pcfg.gamma, pcfg.gae_lambda)
+    aux_t = ppo.pack_aux_t(misc, returns, advs)
+    tile = ppo.update_t_tile(pcfg, BENCH_T, local)
+    n_blocks = BENCH_T * local // tile
+    blocks = torch.randperm(n_blocks, generator=state.gen, device=mesh.device)[: n_blocks // 4]
+    blocks = blocks.to(torch.int32)
+    _, _, grads = pf.fused_ppo_grad_t(model, obs_t, aux_t, blocks, tile=tile,
+                                      action_std=ACTION_STD, clip_eps=CLIP_EPS,
+                                      entropy_coef=ENTROPY_COEF)
+    fused.update(branch=branch, local_envs=local, tile=tile, **_dp_grad_check(
+        mesh, model, grads, pf._gather_rows(obs_t, blocks, tile),
+        pf._gather_rows(aux_t, blocks, tile)))
+    out["fused"] = fused
+    del state, obs_t, misc, aux_t
+
+    env_cfg, pcfg, tcfg = trainer_configs()
+    pcfg = dataclasses.replace(pcfg, fused_adam=True)
+    local = LEARN_B // mesh.size
+    model, opt, state = dp.ppo_init_sharded(2, env_cfg, pcfg, tcfg, mesh)
+    step = dp.make_parallel_train_step(model, opt, env_cfg, pcfg, tcfg, mesh)
+    plan = ppo.update_plan(pcfg, LEARN_T * local, plain_adam=pr.adam_takes(opt, model),
+                           reduced=True)
+    rowmajor = _dp_steps(mesh, step, state, model, launches_want(ppo_fused=pcfg.k_epochs))
+    state = rowmajor.pop("state")
+    _, roll, boot = ppo.rollout_batch(model, state.env_states, state.gen, env_cfg, LEARN_T)
+    returns, advs = gae_advantages(roll.rewards, roll.values, roll.dones, boot,
+                                   pcfg.gamma, pcfg.gae_lambda)
+    obs = roll.obs.reshape(-1, pr.OBS).contiguous()
+    aux = pr.pack_aux(roll.actions.reshape(obs.shape[0], -1),
+                      roll.logprobs.reshape(obs.shape[0], -1), returns.reshape(-1),
+                      advs.reshape(-1))
+    blocks = torch.arange(obs.shape[0] // plan.tile, dtype=torch.int32, device=mesh.device)
+    _, _, grads = pr.fused_ppo_grad(model, obs, aux, blocks, tile=plan.tile, **ROW_KW)
+    rowmajor.update(branch=plan.branch, local_envs=local, tile=plan.tile,
+                    **_dp_grad_check(mesh, model, grads, obs, aux))
+    out["rowmajor"] = rowmajor
+    return out
+
+
+def phase_dp() -> dict:
+    """Data-parallel train steps (`parallel.dp`) on every world of
+    `dp_worlds`, the ranks started by `parallel.launch.spawn` after the
+    kernels were built here: per rank the launches of each step (B1 and 40
+    B2 fully fused, 10 B3 row-major, never B4), parameters equal on every
+    rank after every step, the averaged gradient within 1e-4 relative
+    Frobenius of the single-process gradient of the same rows, warm ms per
+    step."""
+    from autonomous_quadrotor_environment_tpu_torch.parallel import spawn
+
+    t0 = time.perf_counter()
+    worlds, bad = [], []
+    for devices, backend in dp_worlds():
+        t_w = time.perf_counter()
+        ranks = spawn(dp_rank, devices, backend, timeout=DP_TIMEOUT, deadline=DP_DEADLINE)
+        worlds.append({"world": len(devices), "backend": backend, "devices": devices,
+                       "seconds": time.perf_counter() - t_w, "ranks": ranks})
+        for r in ranks:
+            for path in ("fused", "rowmajor"):
+                got = r[path]
+                tag = f"{backend} world {len(devices)} rank {r['rank']} {path}"
+                if any(l != got["want"] for l in got["launches_per_step"]):
+                    bad.append(f"{tag} launched {got['launches_per_step']}, want {got['want']}")
+                if not all(got["params_equal_per_step"]):
+                    bad.append(f"{tag}: parameters differ across ranks")
+                if r["rank"] == 0 and not got["grad_rel_fro_max"] <= 1e-4:
+                    bad.append(f"{tag}: averaged gradient off by {got['grad_rel_fro_max']}")
+                if not all(math.isfinite(v) for v in got["metrics"].values()):
+                    bad.append(f"{tag}: metrics {got['metrics']}")
+    out = {"phase": "dp", "seconds": time.perf_counter() - t0, "card": card(),
+           "device_count": torch.cuda.device_count(), "worlds": worlds}
+    emit(out)
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return out
+
+
+def phase_dp_cli() -> dict:
+    """The trainers' entry points with ``--dp <cards>``: `train_control
+    --robust --curriculum 0,1` for 4 updates (as train_cli: no kernel) and
+    `train_landing` for 2 updates at its defaults with one 20-episode eval.
+    Files written by rank 0 as the serial runs write them, the final
+    checkpoints read back equal to the ones saved at the last eval (the
+    parameters did not move after it), and B5's launches per rank: 1 for
+    the initial reset, 25 per update, and on rank 0 153 for the eval."""
+    import tempfile
+
+    import numpy as np
+
+    from autonomous_quadrotor_environment_tpu_torch.apps import train_control, train_landing
+    from autonomous_quadrotor_environment_tpu_torch.utils import load_params
+
+    t0 = time.perf_counter()
+    world = torch.cuda.device_count()
+    bad = []
+
+    def same(a, b):
+        ta, tb = dict(_tree_items(load_params(a))), dict(_tree_items(load_params(b)))
+        return set(ta) == set(tb) and all(np.array_equal(ta[k], tb[k]) for k in ta)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t_c = time.perf_counter()
+        control = train_control.main(["--dp", str(world), "--robust", "--curriculum", "0,1",
+                                      "--updates", "4", "--eval-every", "2",
+                                      "--eval-episodes", "16", "--out", tmp])
+        control_s = time.perf_counter() - t_c
+        files = sorted(os.path.relpath(os.path.join(d, f), tmp)
+                       for d, _, fs in os.walk(tmp) for f in fs)
+        with open(os.path.join(tmp, "log_128_0.csv")) as f:
+            csv_rows = len(f.read().splitlines()) - 1
+        readback = same(os.path.join(tmp, "nn_final_128_0.msgpack"),
+                        os.path.join(tmp, "untrained_networks", "nn_128_0.msgpack"))
+    want = sorted(["log_128_0.csv", "nn_final_128_0.msgpack", "train_128_0.jsonl",
+                   os.path.join("untrained_networks", "nn_128_0.msgpack")])
+    if files != want or csv_rows != 2 or not readback:
+        bad.append(f"train_control --dp wrote {files}, {csv_rows} CSV rows, "
+                   f"read back equal: {readback}")
+    if any(any(r.values()) for r in control["ranks"]):
+        bad.append(f"train_control --dp launched {control['ranks']}, want no kernel")
+
+    updates, eval_every = 2, 2
+    with tempfile.TemporaryDirectory() as tmp:
+        t_l = time.perf_counter()
+        landing = train_landing.main(["--dp", str(world), "--controller", SOLVED_CONTROLLER,
+                                      "--updates", str(updates), "--eval-every",
+                                      str(eval_every), "--out", tmp])
+        landing_s = time.perf_counter() - t_l
+        lfiles = sorted(os.listdir(tmp))
+        with open(os.path.join(tmp, "train_landing_0.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        lreadback = same(os.path.join(tmp, "PPO_landing_0.msgpack"),
+                         os.path.join(tmp, "PPO_landing_best_0.msgpack"))
+    defaults = {a.dest: a.default for a in train_landing.build_parser()._actions}
+    per_rank = 1 + updates * (defaults["rollout_steps"] + 1)
+    want_b5 = [per_rank + (1 + LAND_DECISIONS) * (updates // eval_every) * (r == 0)
+               for r in range(world)]
+    got_b5 = [r["render_nadir_batch"] for r in landing["ranks"]]
+    if got_b5 != want_b5:
+        bad.append(f"train_landing --dp: B5 launches per rank {got_b5}, want {want_b5}")
+    if lfiles != ["PPO_landing_0.msgpack", "PPO_landing_best_0.msgpack",
+                  "train_landing_0.jsonl"] or [r["update"] for r in rows] != [2] or not all(
+            math.isfinite(v) for r in rows for v in r.values()) or not lreadback:
+        bad.append(f"train_landing --dp wrote {lfiles}, rows {rows}, read back: {lreadback}")
+    out = {"phase": "dp_cli", "seconds": time.perf_counter() - t0, "card": card(),
+           "world": world, "backend": "nccl",
+           "train_control": {"seconds": control_s, "result": control, "files": files},
+           "train_landing": {"seconds": landing_s, "result": landing, "b5_per_rank": got_b5,
+                             "files": lfiles}}
+    emit(out)
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return out
+
+
+STACKED_SEEDS = (0, 1, 2, 3)
+STACKED_SIZES = (1, 4, 30)  # seeds in the timed stacked updates
+
+
+def _stacked_state(seeds, pcfg=None):
+    from autonomous_quadrotor_environment_tpu_torch.agents import multiseed
+
+    env_cfg, _, tcfg = trainer_configs()
+    pcfg = pcfg or PPOConfig(lr=LEARN_LR, k_epochs=10)
+    return (env_cfg, pcfg, tcfg) + multiseed.multiseed_init(list(seeds), env_cfg, pcfg, tcfg,
+                                                            device=DEVICE)
+
+
+def _rollout_agreement(stacked_roll, serial_rolls, b: int) -> dict:
+    """Each seed's slice of the stacked rollout against its serial rollout,
+    env by env as `compare` holds the kernels: done histories equal on >=
+    99% of the envs, the other outputs within 1e-3 (atol and rtol: 128
+    closed-loop steps, the 256-step rollout tolerance) on those envs."""
+    fields = ("obs", "actions", "logprobs", "values", "rewards")
+    agree, worst = [], 0.0
+    for s, ser in enumerate(serial_rolls):
+        sl = slice(s * b, (s + 1) * b)
+        ok = (stacked_roll.dones[:, sl] == ser.dones).all(0)
+        agree.append(ok.float().mean().item())
+        for f in fields:
+            a, w = getattr(stacked_roll, f)[:, sl][:, ok], getattr(ser, f)[:, ok]
+            excess = ((a - w).abs() - 1e-3 * w.abs()).max().item() if ok.any() else 0.0
+            worst = max(worst, excess)
+    return {"done_history_agree": agree, "max_excess_over_rtol": worst,
+            "ok": min(agree) >= 0.99 and worst <= 1e-3}
+
+
+def phase_stacked(serial_ms: float) -> dict:
+    """The stacked seed studies (`agents.multiseed`), no kernel: S = 4 seeds
+    at the trainer's defaults (1024 x 128 each).
+
+    - init: each seed's slice equal to `ppo_init(s)`, parameters and envs,
+      bit for bit;
+    - one stacked update against 4 serial ones: the rollout of the same
+      draws per seed and env (`_rollout_agreement`), and the update of the
+      same rows, each seed's parameters within lr * 0.05 but for at most
+      1e-4 of the entries (Adam's step is near lr * sign(g) where g is near
+      0, so last-bit differences of the stacked products flip it);
+    - the stacked rollout and eval from their CUDA graphs and eagerly:
+      bit-equal; no kernel launch in the stacked step;
+    - warm ms per stacked update at S = 1, 4 and 30 against the serial
+      update's ``serial_ms`` in this run (train_rowmajor's trainer
+      defaults);
+    - micro `seed_study`, `lr_sweep` and `size_sweep`, --stacked (2 seeds,
+      2 learning rates, sizes 16 and 32) and serial (one cell each);
+    - the seed-parallel loop (`parallel.multiseed`) over the dp world of
+      every card with `torch.distributed`'s collectives patched to raise."""
+    from autonomous_quadrotor_environment_tpu_torch.agents import multiseed
+    from autonomous_quadrotor_environment_tpu_torch.parallel import spawn
+
+    t0 = time.perf_counter()
+    bad = []
+    env_cfg, pcfg, tcfg, model, opt, state = _stacked_state(STACKED_SEEDS)
+    s_n, b, t = len(STACKED_SEEDS), LEARN_B, LEARN_T
+    init_equal = []
+    serial = []
+    for i, seed in enumerate(STACKED_SEEDS):
+        m, o, st = ppo.ppo_init(seed, env_cfg, pcfg, tcfg, device=DEVICE)
+        mine = multiseed.seed_slice(state, i)
+        init_equal.append(_bit_equal(list(m.parameters()), list(mine.model.parameters()))
+                          and _bit_equal(st.env_states, mine.env_states))
+        serial.append((m, o, st))
+    if not all(init_equal):
+        bad.append(f"stacked init differs from ppo_init: {init_equal}")
+
+    # One update of each seed, the stacked one and the serial ones from the
+    # same draws: the rollouts env by env, the updates on the same rows.
+    draws = [multiseed.draw_step(g, env_cfg, pcfg, b, t, 0) for g in state.gens]
+    zero_counters()
+    new_states, roll, boot = multiseed.stacked_rollout(model, state.env_states, draws, env_cfg, t)
+    sync()
+    with graphs.eager():
+        _, eager_roll, eager_boot = multiseed.stacked_rollout(model, state.env_states, draws,
+                                                              env_cfg, t)
+    rollout_graph_equal = _bit_equal((roll, boot), (eager_roll, eager_boot))
+    serial_rolls = []
+    with graphs.eager():
+        for (m, o, st), d in zip(serial, draws):
+            _, r, _ = ppo.rollout_batch(m, st.env_states, None, env_cfg, t, noise=d.noise,
+                                        fresh_x0=d.fresh.x0.reshape(t, b, 13))
+            serial_rolls.append(r)
+    agreement = _rollout_agreement(roll, serial_rolls, b)
+    if not agreement["ok"]:
+        bad.append(f"stacked rollout against serial: {agreement}")
+    multiseed.stacked_ppo_update(model, opt, roll, boot, pcfg, None)
+    sync()
+    launches = read_counters()
+    per = lambda x: x.reshape((t, s_n, b) + x.shape[2:])
+    upd_diff, upd_beyond, n_entries = 0.0, 0, 0
+    for i, (m, o, _) in enumerate(serial):
+        r = ppo.Rollout(*(per(x)[:, i] for x in roll))
+        ppo.ppo_update(m, o, r, boot.reshape(s_n, b)[i], None, pcfg)
+        for a, w in zip(multiseed.seed_slice(model, i).parameters(), m.parameters()):
+            d = (a - w).abs()
+            upd_diff = max(upd_diff, d.max().item())
+            upd_beyond += int((d > LEARN_LR * 0.05).sum())
+            n_entries += d.numel()
+    if upd_beyond > 1e-4 * n_entries:
+        bad.append(f"stacked update: {upd_beyond} of {n_entries} entries beyond lr * 0.05")
+    if launches != launches_want():
+        bad.append(f"the stacked step launched {launches}")
+    if not rollout_graph_equal:
+        bad.append("the stacked rollout's graph differs from eager")
+
+    ev = multiseed.make_multiseed_eval_fn(model, env_cfg, LEARN_EPISODES)
+    gens = lambda: [torch.Generator(device=DEVICE).manual_seed(100 + s) for s in STACKED_SEEDS]
+    ev_graph = ev(gens())
+    with graphs.eager():
+        ev_eager = ev(gens())
+    eval_graph_equal = _bit_equal(ev_graph, ev_eager)
+    if not eval_graph_equal:
+        bad.append("the stacked eval's graph differs from eager")
+
+    timed = {}
+    for n_seeds in STACKED_SIZES:
+        torch.cuda.reset_peak_memory_stats()
+        e, p, tc, m, o, st = _stacked_state(range(n_seeds))
+        step = multiseed.make_multiseed_train_step(m, o, e, p, tc)
+        st, _ = step(st)  # the rollout graph's capture
+        sync()
+        ms = []
+        for _ in range(2):
+            t_u = time.perf_counter()
+            st, met = step(st)
+            sync()
+            ms.append((time.perf_counter() - t_u) * 1e3)
+        timed[n_seeds] = {"update_ms": ms, "per_seed_ms": ms[-1] / n_seeds,
+                          "vs_serial": ms[-1] / (n_seeds * serial_ms),
+                          "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+        del e, p, tc, m, o, st, step
+
+    apps = _stacked_apps()
+    bad += apps.pop("bad")
+    devices, backend = dp_worlds()[0]  # every card, one rank each
+    seed_parallel = spawn(seed_parallel_rank, devices, backend, timeout=DP_TIMEOUT,
+                          deadline=DP_DEADLINE)
+    bad += [f"seed-parallel rank {r['rank']}: {r}" for r in seed_parallel if not r["ok"]]
+    out = {"phase": "stacked", "seconds": time.perf_counter() - t0, "card": card(),
+           "seeds": list(STACKED_SEEDS), "B": b, "T": t, "init_bit_equal": init_equal,
+           "rollout_vs_serial": agreement, "update_vs_serial_max_abs": upd_diff,
+           "update_entries_beyond_tol": upd_beyond, "update_entries": n_entries,
+           "launches": launches, "rollout_graph_bit_equal": rollout_graph_equal,
+           "eval_graph_bit_equal": eval_graph_equal,
+           "eval": {k: v.tolist() for k, v in ev_graph.items()},
+           "timed": timed, "serial_update_ms": serial_ms, "apps": apps,
+           "seed_parallel": seed_parallel}
+    emit(out)
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return out
+
+
+def _stacked_apps() -> dict:
+    """Micro runs of the three study apps on the card (8 envs x 8 steps, 4
+    updates, an eval every 2), with --stacked (2 seeds, 2 learning rates, 2
+    sizes) and serially, `train_control` per cell (1 seed, 1 rate, 1
+    size): each cell's CSV (2 rows) and the summary."""
+    import tempfile
+
+    from autonomous_quadrotor_environment_tpu_torch.apps import lr_sweep, seed_study, size_sweep
+
+    micro = ["--updates", "4", "--eval-every", "2", "--num-envs", "8", "--rollout-steps", "8"]
+    runs = {
+        "stacked": [(seed_study, ["--seeds", "2", "--size", "16", "--eval-episodes", "4"]),
+                    (lr_sweep, ["--lrs", "1e-3,1e-5", "--seeds", "2", "--size", "16"]),
+                    (size_sweep, ["--sizes", "16,32", "--seeds", "2", "--eval-episodes", "4"])],
+        "serial": [(seed_study, ["--seeds", "1", "--size", "16", "--eval-episodes", "4"]),
+                   (lr_sweep, ["--lrs", "1e-3", "--seeds", "1", "--size", "16"]),
+                   (size_sweep, ["--sizes", "16", "--seeds", "1", "--eval-episodes", "4"])],
+    }
+    cells = {"stacked": {"seed": [(16, 0), (16, 1)], "lr": [("0.001", 0), ("0.001", 1),
+                                                            ("1e-05", 0), ("1e-05", 1)],
+                         "size": [(16, 0), (16, 1), (32, 0), (32, 1)]},
+             "serial": {"seed": [(16, 0)], "lr": [("0.001", 0)], "size": [(16, 0)]}}
+    out, bad = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        for mode, apps in runs.items():
+            rows, summaries = {}, []
+            for (module, argv), name in zip(apps, ("seed", "lr", "size")):
+                d = f"{tmp}/{mode}/{name}"
+                extra = ["--figure", f"{d}/band.png"] if name == "size" else []
+                t = time.perf_counter()
+                module.main(argv + micro + extra + ["--out", d]
+                            + (["--stacked"] if mode == "stacked" else []))
+                out[f"{mode}_{name}_seconds"] = time.perf_counter() - t
+                for a, seed in cells[mode][name]:
+                    rel = f"lr_{a}/log_16_{seed}.csv" if name == "lr" else f"log_{a}_{seed}.csv"
+                    path = os.path.join(d, rel)
+                    rows[f"{name}/{rel}"] = (len(open(path).read().splitlines()) - 1
+                                             if os.path.exists(path) else None)
+                summaries.append(os.path.exists(os.path.join(d, "summary.json")))
+            out[f"{mode}_csv_rows"] = rows
+            if any(n != 2 for n in rows.values()) or not all(summaries):
+                bad.append(f"{mode} study apps wrote CSV rows {rows}, summaries {summaries}")
+    out["bad"] = bad
+    return out
+
+
+def seed_parallel_rank(mesh) -> dict:
+    """The seed-parallel loop on this rank with `torch.distributed`'s
+    collectives patched to raise: 2 seeds per rank, 2 stacked updates at
+    the trainer's defaults; and an uneven split refused."""
+    import torch.distributed as dist
+
+    from autonomous_quadrotor_environment_tpu_torch.parallel import multiseed as pm
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a collective in the seed-parallel loop")
+
+    env_cfg, _, tcfg = trainer_configs()
+    pcfg = PPOConfig(lr=LEARN_LR, k_epochs=10)
+    seeds = list(range(2 * mesh.size))
+    saved = {n: getattr(dist, n) for n in ("all_reduce", "broadcast", "all_gather")}
+    for n in saved:
+        setattr(dist, n, refuse)
+    try:
+        model, opt, state = pm.multiseed_init_sharded(seeds, env_cfg, pcfg, tcfg, mesh)
+        loop = pm.make_multiseed_parallel_train_loop(model, opt, env_cfg, pcfg, tcfg, mesh, 2)
+        state, metrics = loop(state)
+        sync()
+    finally:
+        for n, fn in saved.items():
+            setattr(dist, n, fn)
+    try:  # 3 seeds over 2 ranks
+        pm.multiseed_init_sharded([0, 1, 2], env_cfg, pcfg, tcfg,
+                                  dataclasses.replace(mesh, size=2))
+        uneven = "accepted"
+    except ValueError as err:
+        uneven = str(err)
+    losses = metrics["loss"].tolist()
+    return {"rank": mesh.rank, "seeds": pm.local_seeds(seeds, mesh), "loss": losses,
+            "uneven_split": uneven,
+            "ok": "shard evenly" in uneven and all(math.isfinite(v) for r in losses for v in r)}
+
+
 def _tree_items(tree, path=()):
     """(path, leaf) pairs of a nested dict."""
     for k, v in tree.items():
@@ -2926,8 +3427,10 @@ def main() -> int:
     control = (phase_control_graph_vs_eager(), cl, phase_missions(), phase_step_response(),
                phase_polish(cl["rates"]["rl"]))
     vision = (phase_vision(), phase_apps())
+    parallel = (phase_dp(), phase_dp_cli(),
+                phase_stacked(trr["trainer_defaults"]["ms_per_update"]))
     for out in (kvp, gvp, rvp, rnd, sl, fly, lvp, lgve, land, land7, tr, trr, ln, lnr,
-                tl) + robust + control + vision:
+                tl) + robust + control + vision + parallel:
         seconds[out["phase"]] = out["seconds"]
     max_err = max([r["max_abs_err"] for r in kvp["runs"]] + [sl["compare"]["max_abs_err"]])
     fused = tr["launches_per_step"][-1]

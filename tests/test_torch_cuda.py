@@ -885,3 +885,56 @@ def test_live_mission_frames_replay_bit_equal_to_eager(card, mode):
     want = me.make_rl_mission_runner(cfg, model, SensorConfig(), mode > 0, chunk * frames,
                                      use_vision=mode == 2)(traj, draws if mode else None)
     assert (graph.cpu().numpy() == want[0, chunk - 1::chunk]).all()
+
+
+@pytest.mark.parametrize("backend,world", [("nccl", 1), ("gloo", 2)])
+def test_dp_steps_on_the_card(card, backend, world):
+    """Data-parallel train steps on the card (`parallel.dp`): one rank per
+    card over NCCL, or 2 ranks on one card over gloo. Per rank and step the
+    launches of the counted kernels (B1, B2, B3, B4, B5): 1 B1 and 4 B2
+    fully fused; 2 B3 and no B4 row-major with fused_adam set, since the
+    Adam step in B4 would not see the reduced gradient; parameters equal on
+    every rank after every step."""
+    from autonomous_quadrotor_environment_tpu_torch.ops import _build
+    from autonomous_quadrotor_environment_tpu_torch.parallel import launch
+
+    import torch_dp_ranks
+
+    if backend == "nccl" and torch.cuda.device_count() < world:
+        pytest.skip(f"needs {world} cards")
+    for name in ("rollout_fused", "ppo_fused_t", "ppo_fused"):
+        _build.build(name)  # once here, not in every rank at once
+    devices = [f"cuda:{r}" for r in range(world)] if backend == "nccl" else ["cuda:0"] * world
+    ranks = launch.spawn(torch_dp_ranks.card_dp_rank, devices, backend, timeout=300,
+                         deadline=600)
+    for r in ranks:
+        assert [s["launches"] for s in r["fused"]] == [[1, 4, 0, 0, 0]] * 2
+        assert [s["launches"] for s in r["rowmajor"]] == [[0, 0, 2, 0, 0]] * 2
+        assert all(s["same"] for path in r.values() for s in path)
+        assert all(s["loss"] == s["loss"] for path in r.values() for s in path)
+
+
+def test_stacked_rollout_and_eval_graphs_match_eager(card):
+    """The stacked study's rollout (3 seeds x 64 envs x 16 steps, one graph
+    replay) and eval (3 x 32 episodes) replayed from their CUDA graphs and
+    run eagerly from the same draws: bit-equal; no counted kernel
+    launched."""
+    from autonomous_quadrotor_environment_tpu_torch.agents import multiseed
+    from autonomous_quadrotor_environment_tpu_torch.utils import graphs
+
+    env_cfg, pcfg = EnvConfig(), PPOConfig(k_epochs=2)
+    tcfg = TrainConfig(num_envs=64, rollout_steps=16)
+    model, _, state = multiseed.multiseed_init([0, 1, 2], env_cfg, pcfg, tcfg, device=card)
+    draws = [multiseed.draw_step(g, env_cfg, pcfg, 64, 16, 0) for g in state.gens]
+    before = [k.launches for k in graphs._counted()]
+    got = multiseed.stacked_rollout(model, state.env_states, draws, env_cfg, 16)
+    ev = multiseed.make_multiseed_eval_fn(model, env_cfg, 32)
+    gens = lambda: [torch.Generator(device=card).manual_seed(s) for s in (5, 6, 7)]
+    got_eval = ev(gens())
+    with graphs.eager():
+        want = multiseed.stacked_rollout(model, state.env_states, draws, env_cfg, 16)
+        want_eval = ev(gens())
+    torch.cuda.synchronize()
+    assert [k.launches for k in graphs._counted()] == before
+    for a, b in zip(graphs.leaves((got, got_eval)), graphs.leaves((want, want_eval))):
+        assert torch.equal(a, b)

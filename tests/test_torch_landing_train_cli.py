@@ -41,7 +41,8 @@ def test_train_landing_cli_on_the_cpu(tmp_path, monkeypatch):
     keys, the rolling and best checkpoints, which read back equal to the
     model bit for bit; then --resume of that space-to-depth checkpoint into
     a plain model (0 updates) writes the same function in the plain layout;
-    --dp is refused with its ROADMAP item."""
+    --dp 2 trains on 2 gloo ranks (one env each) and rank 0 writes the same
+    files."""
     models = []
     init = train_landing.landing_ppo_init
 
@@ -75,8 +76,15 @@ def test_train_landing_cli_on_the_cpu(tmp_path, monkeypatch):
     assert not tnet.detect_s2d(str(plain / "PPO_landing_0.msgpack"))
     for path, w in jax.tree_util.tree_leaves_with_path(tnet.params_from_s2d(want)):
         assert np.array_equal(dict(jax.tree_util.tree_leaves_with_path(back))[path], w)
-    with pytest.raises(NotImplementedError, match="A16"):
-        train_landing.main(base + ["--dp", "2", "--out", str(tmp_path / "dp")])
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # each rank one thread
+    dp = train_landing.main(base + ["--updates", "1", "--eval-every", "1", "--eval-episodes",
+                                    "1", "--dp", "2", "--out", str(tmp_path / "dp")])
+    assert sorted(os.listdir(tmp_path / "dp")) == ["PPO_landing_0.msgpack",
+                                                   "PPO_landing_best_0.msgpack",
+                                                   "train_landing_0.jsonl"]
+    rows = [json.loads(line) for line in open(tmp_path / "dp" / "train_landing_0.jsonl")]
+    assert [r["update"] for r in rows] == [1] and set(rows[0]) == KEYS
+    assert len(dp["ranks"]) == 2 and dp["final_eval"]["eval_finished"] == 1.0
 
 
 @pytest.mark.parametrize("s2d", [False, True])

@@ -2,8 +2,8 @@
 cross-eval CLI against the JAX package's, on the CPU: checkpoints read both
 ways and byte-equal where flax writes the same tree; the CSV log's header
 and resume; `train_control --inner 3` equal to `--inner 1`; a robust
-curriculum run writing the files the JAX package's writes; `--dp` refused
-with the ROADMAP item that will port it; `robust_eval
+curriculum run writing the files the JAX package's writes; `--dp 2` on
+gloo ranks writing them too; `robust_eval
 --forensic` writing the JAX package's keys; the shipped robust fixture."""
 
 import csv
@@ -162,10 +162,23 @@ def test_robust_curriculum_run_writes_what_jax_writes(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flag,item", [("--dp=2", "A16")])
-def test_train_control_refuses_what_is_not_ported(flag, item, tmp_path):
-    with pytest.raises(NotImplementedError, match=item):
-        train_control.main(SMALL + [flag, "--out", str(tmp_path)])
-    assert not os.listdir(tmp_path)
+def test_train_control_refuses_what_is_not_ported(flag, item, tmp_path, monkeypatch):
+    """The trainer refuses nothing any more: ``--dp=2``, once refused with
+    its ROADMAP item (``item``, since ported), trains on 2 gloo ranks of 4
+    envs each on the CPU, and rank 0 writes what the serial run writes:
+    the same files, a CSV row per eval, a final checkpoint that the JAX
+    package reads into a hidden-16 model; no rank launched a kernel."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # each rank one thread
+    result = train_control.main(SMALL + [flag, "--out", str(tmp_path / "dp")])
+    train_control.main(SMALL + ["--out", str(tmp_path / "serial")])
+    assert _files(tmp_path / "dp") == _files(tmp_path / "serial")
+    assert result["total_steps"] == 6 * 8 * 16 and len(result["ranks"]) == 2
+    assert not any(n for rank in result["ranks"] for n in rank.values())
+    with open(tmp_path / "dp" / "log_16_3.csv") as f:
+        assert len(list(csv.reader(f))) == 3
+    jmodel = JActorCritic(hidden=16)
+    template = jmodel.init(jax.random.PRNGKey(0), np.zeros((1, 75), np.float32))
+    jload_params(str(tmp_path / "dp" / "nn_final_16_3.msgpack"), template)
 
 
 def test_robust_eval_forensic_writes_the_jax_keys(tmp_path):

@@ -214,6 +214,23 @@ def jax_reset_draws(keys, jenv_cfg):
     return x0, dom, gust, np.asarray(k_after)
 
 
+_ROLLOUT_FNS: dict = {}
+
+
+def _jax_rollout_fn(jmodel, jenv_cfg, steps, reset_pool):
+    """The JAX package's `rollout_batch` jitted once per model, config and
+    shape (a test's calls then share one compile)."""
+    import jax
+
+    from autonomous_quadrotor_environment_tpu.agents.ppo import rollout_batch
+
+    key = (id(jmodel), jenv_cfg, steps, reset_pool)
+    if key not in _ROLLOUT_FNS:
+        _ROLLOUT_FNS[key] = (jmodel, jax.jit(lambda p, s, k: rollout_batch(
+            jmodel, p, s, k, jenv_cfg, steps, reset_pool=reset_pool)))
+    return _ROLLOUT_FNS[key][1]
+
+
 def jax_robust_rollout_draws(jmodel, jparams, jstates, key, jenv_cfg, steps, reset_pool):
     """Every draw of the JAX package's `rollout_batch` from ``key``, as the
     port's `rollout_batch` takes them: a dict of CPU tensors ``noise`` (T,
@@ -228,10 +245,7 @@ def jax_robust_rollout_draws(jmodel, jparams, jstates, key, jenv_cfg, steps, res
     that split). Also returns JAX's ``(new_states, rollout, bootstrap)``."""
     import jax
 
-    from autonomous_quadrotor_environment_tpu.agents.ppo import rollout_batch
-
-    out = jax.jit(lambda p, s, k: rollout_batch(jmodel, p, s, k, jenv_cfg, steps,
-                                                reset_pool=reset_pool))(jparams, jstates, key)
+    out = _jax_rollout_fn(jmodel, jenv_cfg, steps, reset_pool)(jparams, jstates, key)
     b = np.asarray(jstates.x).shape[0]
     dones = np.asarray(out[1].dones)
     split2 = _split_fn()
