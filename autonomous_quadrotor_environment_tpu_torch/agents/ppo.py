@@ -37,10 +37,9 @@ Differences of form from the JAX package:
   (each minibatch's gradients averaged over the ranks before the clip and
   the Adam step, which keeps the Adam step out of B4), a metric reduce,
   and the envs one rank rolls out, which the kernels' gates read.
-* bf16 products are refused with the ROADMAP item that will port them, and
-  on the card so are shapes that the JAX package sends to a kernel the
-  port's kernels do not take yet (hidden widths other than 128, B2 tiles
-  that are not a multiple of 32).
+* The kernels take every configuration the JAX package sends them, bf16
+  products (``fused_compute``) among them, up to hidden width 256; on the
+  card a wider model is refused with its ROADMAP item (`train_branch`).
 """
 
 from __future__ import annotations
@@ -58,7 +57,7 @@ from ..device import resolve_device
 from ..envs import hover
 from ..ops import ppo_fused as pfr
 from ..ops import rollout_fused as rf
-from ..ops.ppo_fused_t import TILE_STEP, fused_ppo_grad_t
+from ..ops.ppo_fused_t import fused_ppo_grad_t
 from ..utils import graphs
 from .gae import gae_advantages
 from .networks import ActorCritic, DiagGaussian
@@ -449,7 +448,7 @@ def ppo_update_t(
             loss, metrics, grads = fused_ppo_grad_t(
                 model, obs_t, aux_t, blocks.contiguous(), tile=tile,
                 action_std=cfg.action_std, clip_eps=cfg.clip_eps,
-                entropy_coef=cfg.entropy_coef,
+                entropy_coef=cfg.entropy_coef, compute_dtype=cfg.fused_compute,
             )
             if grad_reduce is not None:
                 grads = grad_reduce(grads)
@@ -544,7 +543,7 @@ def ppo_update(
                        pfr.adam_takes(opt, model), reduced=grad_reduce is not None)
     n, mb, block, device = plan.n, plan.mb, plan.block, obs.device
     kernel_kw = dict(tile=plan.tile, action_std=cfg.action_std, clip_eps=cfg.clip_eps,
-                     entropy_coef=cfg.entropy_coef)
+                     entropy_coef=cfg.entropy_coef, compute_dtype=cfg.fused_compute)
     if plan.tile:
         obs = obs.contiguous()
         aux = pfr.pack_aux(actions, old_lp, rets, advs)
@@ -704,13 +703,12 @@ def train_branch(model: ActorCritic, opt: torch.optim.Optimizer, env_cfg: EnvCon
     refuses it (`uses_fused_rollout`), as in the JAX package. The gates
     read the batch that one rank rolls out, ``local_envs`` (all
     ``num_envs`` when None; JAX ppo.py:584-594, :623), and ``reduced`` (a
-    cross-rank gradient reduce) keeps the Adam step out of B4. Refuses what
-    is not ported yet: bf16 products in a kernel, and, for a model on the
-    card, a shape that the JAX package sends
-    to a kernel the port's kernels do not take (hidden widths other than
-    128; obs widths other than 75, that is hist_t other than 5; B2 tiles
-    that are not a multiple of 32). The CPU runs every shape
-    through the kernels' plain versions."""
+    cross-rank gradient reduce) keeps the Adam step out of B4. The kernels
+    take every configuration the JAX package sends them up to hidden width
+    256: f32 or bf16 products (``fused_compute``), any hist_t on the
+    row-major branch, any tile `update_t_tile` gives. For a model on the
+    card a wider one is refused (ROADMAP B, hidden widths above 256). The
+    CPU runs every shape through the kernels' plain versions."""
     if train_cfg.fused_rollout or ppo_cfg.fused_update:
         if float(model.action_std) != float(ppo_cfg.action_std):
             raise ValueError(
@@ -730,27 +728,12 @@ def train_branch(model: ActorCritic, opt: torch.optim.Optimizer, env_cfg: EnvCon
     plan = update_plan(ppo_cfg, steps * b, model.learn_std or ppo_cfg.learn_std,
                        pfr.adam_takes(opt, model), reduced)
     kernel_update = fused_t or plan.branch != "autograd"
-    if kernel_update and ppo_cfg.fused_compute != "f32":
+    if (next(model.parameters()).device.type == "cuda" and (fused_rollout or kernel_update)
+            and not rf.kernel_width(model.hidden)):
         raise NotImplementedError(
-            f"fused_compute={ppo_cfg.fused_compute!r} is not ported yet "
-            "(ROADMAP B, the rest of B1 and B2)"
+            f"the port's kernels take hidden widths up to {rf.WIDTHS[-1]}, not "
+            f"{model.hidden} (ROADMAP B, hidden widths above 256)"
         )
-    if next(model.parameters()).device.type == "cuda":
-        if (fused_rollout or kernel_update) and model.hidden != rf.HIDDEN:
-            raise NotImplementedError(
-                f"the port's kernels take hidden width {rf.HIDDEN}, not {model.hidden} "
-                "(ROADMAP B, the rest of B1 and B2)"
-            )
-        if kernel_update and env_cfg.hist_t * 15 != pfr.OBS:
-            raise NotImplementedError(
-                f"the port's update kernels take {pfr.OBS}-dim obs, not {env_cfg.hist_t * 15} "
-                f"(hist_t={env_cfg.hist_t}; ROADMAP B, the rest of B1 and B2)"
-            )
-        if fused_t and tile_t % TILE_STEP:
-            raise NotImplementedError(
-                f"the port's B2 kernel takes env tiles that are multiples of {TILE_STEP}, "
-                f"not {tile_t} (ROADMAP B, the rest of B1 and B2)"
-            )
     return "fused_t" if fused_t else "rowmajor"
 
 

@@ -195,8 +195,8 @@ class SensorConfig:
 @dataclasses.dataclass(frozen=True)
 class PPOConfig:
     """PPO hyperparameters (reference ppo.py:297-318). ``fused_compute="bf16"``
-    is kept so the config compares equal to the JAX package's;
-    `agents.ppo.make_train_step` refuses bf16 products. The reshuffle modes
+    runs the update kernels' products on bf16 operands with f32 sums, as the
+    JAX package's kernels do. The reshuffle modes
     run in the landing trainer (`landing.ppo.landing_update`)."""
 
     lr: float = 5e-4

@@ -1,11 +1,14 @@
-// The 3xTF32 tensor-core products shared by the PPO gradient kernels
+// The tensor-core products shared by the PPO gradient kernels
 // (`ppo_grad.cuh`) and the rollout kernel (`rollout_fused.cu`), for sm_90a:
 // the split of an f32 operand into two TF32 parts, the m16n8k8 TF32 tensor-
-// core product, asynchronous copies from global to shared memory, the
-// fragment views of operands in shared memory and a warp's tile product.
+// core product, the m16n8k16 bf16 product, asynchronous copies from global
+// to shared memory, the fragment views of operands (in shared memory, or in
+// global memory where the weights do not fit beside the rest) and a warp's
+// tile product in 3xTF32 or in bf16.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace ppo_grad {
@@ -32,6 +35,30 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a b for one 16 x 8 tile over a depth of 16, operands in bf16, the
+// sum in f32. Each register holds two bf16 of consecutive k, the lower k in
+// the low half: a = A[g][2t..], A[g+8][2t..], A[g][2t+8..], A[g+8][2t+8..];
+// b = B[2t..][g], B[2t+8..][g]; c as for mma_tf32.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Two floats rounded to bf16 to nearest even (as JAX's astype(bfloat16)),
+// packed for mma_bf16: x in the low half.
+__device__ __forceinline__ uint32_t bf16x2(float2 v) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v.x, v.y);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// x rounded to bf16 to nearest even, as a float.
+__device__ __forceinline__ float bf16r(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 // 16 bytes (both addresses 16-byte aligned) or 4 bytes, global to shared,
@@ -61,18 +88,24 @@ __device__ __forceinline__ int swz(int row) { return ((row & 3) << 3) | (row & 4
 // columns k = 8 i + t + 4 q (q = 0, 1): a = (c 2mt, q 0), (2mt + 1, 0),
 // (2mt, 1), (2mt + 1, 1) of an m16 tile; b = (nt, 0), (nt, 1) of an n8 tile.
 // Each view keeps per-thread bases, so a depth step adds an immediate (or
-// one XOR) to them.
+// one XOR) to them. For the bf16 products each view also reads the pair
+// (idx0 + ri, k), (idx0 + ri, k + 1) at an even k (`pair`).
 //
 // Entry (idx, k) at p[idx * LD + k]: rows padded, no swizzle (W1).
 template <int LD>
 struct RowsPlain {
   const float* b;
+  const float* r;
   __device__ __forceinline__ RowsPlain(const float* p, int idx0) {
     const int lane = threadIdx.x & 31;
     b = p + (idx0 + (lane >> 2)) * LD + (lane & 3);
+    r = p + idx0 * LD;
   }
   __device__ __forceinline__ float at(int c, int q, int i) const {
     return b[8 * c * LD + 8 * i + 4 * q];
+  }
+  __device__ __forceinline__ float2 pair(int ri, int k) const {
+    return *reinterpret_cast<const float2*>(r + ri * LD + k);
   }
 };
 
@@ -81,12 +114,17 @@ struct RowsPlain {
 template <int LD>
 struct ColsPlain {
   const float* b;
+  const float* r;
   __device__ __forceinline__ ColsPlain(const float* p, int idx0) {
     const int lane = threadIdx.x & 31;
     b = p + (lane & 3) * LD + idx0 + (lane >> 2);
+    r = p + idx0;
   }
   __device__ __forceinline__ float at(int c, int q, int i) const {
     return b[(8 * i + 4 * q) * LD + 8 * c];
+  }
+  __device__ __forceinline__ float2 pair(int ri, int k) const {
+    return make_float2(r[k * LD + ri], r[(k + 1) * LD + ri]);
   }
 };
 
@@ -95,33 +133,49 @@ struct ColsPlain {
 template <int LD>
 struct RowsSwz {
   const float* b;
-  int g3, g2;
+  const float* r;
+  int g3, g2, i0;
   __device__ __forceinline__ RowsSwz(const float* p, int idx0) {
     const int lane = threadIdx.x & 31, g = lane >> 2;
     b = p + (idx0 + g) * LD + (lane & 3);
     g3 = g & 3;
     g2 = g >> 2;
+    r = p;
+    i0 = idx0;
   }
   __device__ __forceinline__ float at(int c, int q, int i) const {
     return b[8 * c * LD + 8 * (i ^ g3) + 4 * (q ^ g2)];
   }
+  // swz flips bits 2-4 of the column only, so k and k + 1 stay neighbours.
+  __device__ __forceinline__ float2 pair(int ri, int k) const {
+    const int idx = i0 + ri;
+    return *reinterpret_cast<const float2*>(r + idx * LD + (k ^ swz(idx)));
+  }
 };
 
 // Entry (idx, k) at p[k * LD + (idx ^ swz(k))], k along the stored rows,
-// idx0 a multiple of 32 and c < 4: swz(k) = 8 t + 4 q, so the entry is at
-// p + (8 i + t + 4 q) LD + idx0 + 8 (c ^ t) + (g ^ 4 q).
+// idx0 = 32 a + 8 c0 and c0 + c < 4: swz(k) = 8 t + 4 q, so the entry is at
+// p + (8 i + t + 4 q) LD + 32 a + 8 ((c0 + c) ^ t) + (g ^ 4 q).
 template <int LD>
 struct ColsSwz {
   const float* b[2];
-  int t;
+  const float* r;
+  int t, c0, i0;
   __device__ __forceinline__ ColsSwz(const float* p, int idx0) {
     const int lane = threadIdx.x & 31, g = lane >> 2;
     t = lane & 3;
-    b[0] = p + t * LD + idx0 + g;
-    b[1] = p + (t + 4) * LD + idx0 + (g ^ 4);
+    c0 = (idx0 >> 3) & 3;
+    b[0] = p + t * LD + (idx0 & ~31) + g;
+    b[1] = p + (t + 4) * LD + (idx0 & ~31) + (g ^ 4);
+    r = p;
+    i0 = idx0;
   }
   __device__ __forceinline__ float at(int c, int q, int i) const {
-    return b[q][8 * i * LD + 8 * (c ^ t)];
+    return b[q][8 * i * LD + 8 * ((c0 + c) ^ t)];
+  }
+  __device__ __forceinline__ float2 pair(int ri, int k) const {
+    const int idx = i0 + ri;
+    return make_float2(r[k * LD + (idx ^ swz(k))], r[(k + 1) * LD + (idx ^ swz(k + 1))]);
   }
 };
 
@@ -181,6 +235,32 @@ __device__ __forceinline__ void warp_mma(float (&acc)[MT][NT][4], const VA& a, c
         mma_tf32(acc[mt][nt], ah[mt], bl);
         mma_tf32(acc[mt][nt], ah[mt], bh);
       }
+    }
+  }
+}
+
+// The same product in bf16 over `steps` depth steps of 16: each operand
+// entry rounded to bf16 to nearest even as it is read, one product a tile,
+// f32 sums.
+template <int MT, int NT, class VA, class VB>
+__device__ __forceinline__ void warp_mma_bf16(float (&acc)[MT][NT][4], const VA& a,
+                                              const VB& b, int steps) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll 1
+  for (int i = 0; i < steps; ++i) {
+    const int k0 = 16 * i + 2 * t;
+    uint32_t af[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        af[mt][q] = bf16x2(a.pair(16 * mt + 8 * (q & 1) + g, k0 + 8 * (q >> 1)));
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const uint32_t bf[2] = {bf16x2(b.pair(8 * nt + g, k0)),
+                              bf16x2(b.pair(8 * nt + g, k0 + 8))};
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[mt][nt], af[mt], bf);
     }
   }
 }

@@ -19,14 +19,17 @@
 // B2's (`ppo_grad.cuh`, where the design and the bound are written down).
 // What is this file's own is the loader. The minibatch is the row blocks
 // `perm` of `tile` rows each and is never gathered: minibatch row m is row
-// perm[m / tile] * tile + m % tile of the row-major obs (n, 75) and aux
+// perm[m / tile] * tile + m % tile of the row-major obs (n, OBS) and aux
 // (n, 8). A chunk is 64 consecutive minibatch rows; its source rows are
 // resolved into shared memory while the chunk before it computes, then its
-// 64 x 75 floats are copied by 4-byte cp.async (a row is 300 bytes, only
-// 4-byte aligned) into the chunk's transposed X^T, neighbouring threads on
-// neighbouring floats of a row, so the loads coalesce. Any tile goes: a
-// chunk may span blocks, and the last chunk is padded with rows that add
-// nothing.
+// 64 x OBS floats are copied by 4-byte cp.async (a row of 75 floats is 300
+// bytes, only 4-byte aligned) into the chunk's transposed X^T, neighbouring
+// threads on neighbouring floats of a row, so the loads coalesce. Any tile
+// goes: a chunk may span blocks, and the last chunk is padded with rows
+// that add nothing. The library is built for one obs width (any
+// EnvConfig.hist_t * 15; the depth zero-padded to K1); where it is WIDE
+// (`ppo_grad.cuh`) only the aux rows are staged and the products read the
+// obs rows in place through the table.
 
 #include "ppo_grad.cuh"
 
@@ -46,7 +49,7 @@ struct Params {
 
 // Chunk q's source rows into table buf: a row >= 0; -1 padding past the
 // minibatch's end (zeros); -2 a bad block id, whose row poisons the loss
-// and the gradients with NaN.
+// and the gradients with NaN. The table's second half is 0 (`XRows`).
 __device__ __forceinline__ void resolve(const Params& P, float* S, int q, int buf) {
   if (threadIdx.x >= CHUNK) return;
   const int m = q * CHUNK + threadIdx.x;
@@ -55,16 +58,19 @@ __device__ __forceinline__ void resolve(const Params& P, float* S, int q, int bu
     const int p = __ldg(P.perm + m / P.tile);
     row = (p >= 0 && p < P.n_ids) ? p * P.tile + m % P.tile : -2;
   }
-  reinterpret_cast<int*>(S + S_ROWS)[buf * CHUNK + threadIdx.x] = row;
+  int* tab = reinterpret_cast<int*>(S + S_ROWS) + buf * 2 * CHUNK;
+  tab[threadIdx.x] = row;
+  tab[CHUNK + threadIdx.x] = 0;
 }
 
-// Stage the chunk of table buf in input buffer buf: X^T and aux rows 0-6 by
-// cp.async, aux row 7 the live flags (a bad row is live).
+// Stage the chunk of table buf in input buffer buf: X^T (but where WIDE)
+// and aux rows 0-6 by cp.async, aux row 7 the live flags (a bad row is
+// live).
 __device__ __forceinline__ void stage(const Params& P, float* S, int buf) {
-  const int* rows = reinterpret_cast<const int*>(S + S_ROWS) + buf * CHUNK;
+  const int* rows = reinterpret_cast<const int*>(S + S_ROWS) + buf * 2 * CHUNK;
   float* X = S + S_X + buf * K1 * CHUNK;
   float* AUX = S + S_AUX + buf * 8 * CHUNK;
-  for (int e = threadIdx.x; e < CHUNK * OBS; e += THREADS) {
+  for (int e = threadIdx.x; e < CHUNK * OBS * !WIDE; e += THREADS) {
     const int r = e / OBS, f = e - r * OBS, row = rows[r];
     float* dst = X + f * CHUNK + (r ^ swz(f));
     if (row >= 0) cp_async4(dst, P.obs + (size_t)row * OBS + f); else *dst = 0.f;
@@ -81,9 +87,10 @@ __device__ __forceinline__ void stage(const Params& P, float* S, int buf) {
 __global__ void __launch_bounds__(THREADS, 1) ppo_grad_rows_kernel(Params P) {
   extern __shared__ float4 smem4[];
   float* S = reinterpret_cast<float*>(smem4);
-  const int head = blockIdx.y;  // 0 actor, 1 critic
+  const int head = blockIdx.y, slice = blockIdx.z;  // head 0 actor, 1 critic
+  const float* W = P.pack + head * PACK;
   Walk w;
-  init_walk(S, P.pack + head * PACK, w);
+  init_walk(S, W, w, P.work, P.G, head, slice);
 
   const int n_chunks = (P.mb + CHUNK - 1) / CHUNK;
   int q = blockIdx.x, buf = 0;
@@ -96,12 +103,12 @@ __global__ void __launch_bounds__(THREADS, 1) ppo_grad_rows_kernel(Params P) {
     __syncthreads();  // chunk q staged; the previous chunk's readers are done
     const int next = q + P.G;
     if (next < n_chunks) resolve(P, S, next, buf ^ 1);
-    chunk_grad(S, buf, head, P.c, w, [&] {
+    chunk_grad(S, W, buf, head, slice, P.c, w, XRows{P.obs, (size_t)OBS, 1}, [&] {
       if (next < n_chunks) stage(P, S, buf ^ 1);
       cp_async_commit();
     });
   }
-  write_partial(S, P.work, P.G, head, w);
+  write_partial(S, P.work, P.G, head, slice, w);
 }
 
 // The 12 parameter leaves and their two Adam moments, flax leaf order,
@@ -117,16 +124,18 @@ struct AdamConsts {
 };
 
 // reduce_kernel's sums, with the Adam step applied to each finished gradient
-// entry instead of writing it out; the metrics go to metrics[0..2].
+// entry of width hr instead of writing it out; the metrics go to
+// metrics[0..2].
 __global__ void reduce_adam_kernel(const float* __restrict__ work, float* __restrict__ metrics,
-                                   int G, AdamLeaves L, AdamConsts a) {
+                                   int G, int hr, AdamLeaves L, AdamConsts a) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= N_OUT) return;
-  if (e >= O_GRADS) {
-    metrics[e - O_GRADS] = reduce_metric(work, G, e - O_GRADS);
+  const int n_grads = out_actor(hr) + out_critic(hr);
+  if (e >= n_grads + 3) return;
+  if (e >= n_grads) {
+    metrics[e - n_grads] = reduce_metric(work, G, e - n_grads);
     return;
   }
-  const Entry at = locate(e);
+  const Entry at = locate(e, hr);
   const float g = sum_partials(work, G, at.head, at.src);
   float* pp = L.p[at.leaf] + at.off;
   float* mp = L.m[at.leaf] + at.off;
@@ -142,7 +151,7 @@ cudaError_t launch_grad(const Params& P, cudaStream_t s) {
   cudaError_t err = cudaFuncSetAttribute(
       ppo_grad_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return err;
-  ppo_grad_rows_kernel<<<dim3(P.G, 2), THREADS, SMEM_BYTES, s>>>(P);
+  ppo_grad_rows_kernel<<<dim3(P.G, 2, NS), THREADS, SMEM_BYTES, s>>>(P);
   return cudaGetLastError();
 }
 
@@ -150,12 +159,13 @@ cudaError_t launch_grad(const Params& P, cudaStream_t s) {
 
 extern "C" {
 
-// B3: the gradient kernel and the reduction into `out` (N_OUT floats) on
-// `stream`. Returns cudaGetLastError(): a launch the card refuses never runs
-// and is reported only here.
+// B3: the gradient kernel and the reduction into `out` (out_floats(hr)
+// floats) on `stream`, for a model of hidden width hr (at most H; the pack
+// zero-padded to H). Returns cudaGetLastError(): a launch the card refuses
+// never runs and is reported only here.
 int ppo_fused(const float* obs, const float* aux, const int* perm, const float* pack,
               float* work, float* out, int n, int tile, int n_blocks, int G,
-              float inv_std, float lp_const, float lo, float hi, float inv_n,
+              float inv_std, float lp_const, float lo, float hi, float inv_n, int hr,
               int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -164,16 +174,16 @@ int ppo_fused(const float* obs, const float* aux, const int* perm, const float* 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   err = launch_grad(P, s);
   if (err != cudaSuccess) return (int)err;
-  reduce_kernel<<<(N_OUT + 255) / 256, 256, 0, s>>>(work, out, G);
+  reduce_kernel<<<(out_floats(hr) + 255) / 256, 256, 0, s>>>(work, out, G, hr);
   return (int)cudaGetLastError();
 }
 
 // B4: the gradient kernel, then the reduction with the Adam step on the 36
-// leaves in `leaves` (params, exp_avg, exp_avg_sq, each in flax leaf order),
-// in place; the three metrics into `metrics`.
+// leaves in `leaves` (params, exp_avg, exp_avg_sq, each in flax leaf order,
+// at the model's width hr), in place; the three metrics into `metrics`.
 int ppo_fused_adam(const float* obs, const float* aux, const int* perm, const float* pack,
                    float* work, float* metrics, int n, int tile, int n_blocks, int G,
-                   float inv_std, float lp_const, float lo, float hi, float inv_n,
+                   float inv_std, float lp_const, float lo, float hi, float inv_n, int hr,
                    void* const* leaves, float one_minus_b1, float b2, float one_minus_b2,
                    float neg_step_size, float bc2_sqrt, float eps, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -189,8 +199,8 @@ int ppo_fused_adam(const float* obs, const float* aux, const int* perm, const fl
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   err = launch_grad(P, s);
   if (err != cudaSuccess) return (int)err;
-  reduce_adam_kernel<<<(N_OUT + 255) / 256, 256, 0, s>>>(
-      work, metrics, G, L, AdamConsts{one_minus_b1, b2, one_minus_b2, neg_step_size, bc2_sqrt, eps});
+  reduce_adam_kernel<<<(out_floats(hr) + 255) / 256, 256, 0, s>>>(
+      work, metrics, G, hr, L, AdamConsts{one_minus_b1, b2, one_minus_b2, neg_step_size, bc2_sqrt, eps});
   return (int)cudaGetLastError();
 }
 

@@ -2,72 +2,114 @@
 // (B2, transposed batch) and `ppo_fused.cu` (B3 and B4, row-major batch).
 // Both compute, over a minibatch of rows, the clipped-surrogate + value loss
 // of the port's `agents.ppo.ppo_loss` under the fixed std and the gradients
-// of all 12 ActorCritic leaves (75 -> 128 -> 128 -> 4 tanh actor, -> 1
+// of all 12 ActorCritic leaves (OBS -> H -> H -> 4 tanh actor, -> 1
 // critic), with the hand-derived backward and the clip-tie convention
 // where(surr1 <= surr2, 1, in_band), in_band strict on both sides. They
 // differ only in how a chunk of rows reaches shared memory.
 //
-// Bound: 277,248 f32 FLOP per row at hidden 128 against 332 bytes of row
-// data, so compute bound at every shape the trainer runs: 2.17 ms at the
-// bench minibatch (524,288 rows) on the H100's 67 TFLOP/s of f32 CUDA
-// cores. Over 99% of the FLOP are in five products of width 128 per head,
-// which run here on the tensor cores in 3xTF32, three TF32 products per f32
-// product (0.88 ms at the 495 TFLOP/s TF32 peak).
+// One library per instantiation: the build (`ops/_build.py`) sets the
+// hidden width AQE_H (32, 64, 128 or 256; a narrower model runs zero-padded
+// on the next width up), the obs width AQE_OBS and the products' precision
+// AQE_BF16. Zero padding is exact: a padded unit has zero weights in and
+// out and a zero bias, so its activation is tanh(0) = 0 and its delta 0; it
+// adds exact zeros to every sum and its gradient entries are exactly 0. The
+// wrappers pad only the weight pack (a copy made for every launch anyway);
+// the reductions read the real width's entries out of the padded partials,
+// so B4's Adam step runs in place on the model's own leaves, no copies.
+//
+// Bound at H = 128, OBS = 75: 277,248 f32 FLOP per row against 332 bytes of
+// row data, so compute bound at every shape the trainer runs: 2.17 ms at
+// the bench minibatch (524,288 rows) on the H100's 67 TFLOP/s of f32 CUDA
+// cores. Over 99% of the FLOP are in five products of width H per head,
+// which run on the tensor cores: in f32 mode in 3xTF32, three TF32 products
+// per f32 product (0.88 ms at the 495 TFLOP/s TF32 peak); in bf16 mode
+// (PPOConfig.fused_compute = "bf16") one bf16 product with f32 sums (0.15
+// ms at the 989 TFLOP/s dense bf16 peak).
 //
 // Design, common to both:
 //
 // * The actor and the critic are independent given the rows, so each CTA
-//   serves one head (blockIdx.y); G CTAs per head (about half the SMs) walk
-//   the minibatch's chunks of CHUNK = 64 rows with stride G, in order.
-// * Weights resident in shared memory: each CTA loads its head's W1 (128 x
-//   80, rows padded to 84 floats), one copy of W2 (128 x 128), W3 and the
-//   biases once, for its whole walk. The forward and the backward read the
-//   one W2 through different fragment mappings.
-// * Tensor cores in 3xTF32: each f32 operand x is split into hi = tf32(x)
-//   and lo = tf32(x - hi), and a product is lo hi + hi lo + hi hi with f32
-//   accumulation (mma.sync m16n8k8), which keeps f32 accuracy; single-pass
-//   TF32 would not. Per chunk and head, on 8 warps: the forward X W1^T (K =
-//   80, inputs 75-79 zero) and H1 W2^T, each warp a 32 x 32 tile; the data
-//   gradient g_h2 W2; the weight gradients g_h2^T H1 and g_h1^T X, K = the
-//   chunk's 64 rows. The products through W3 (4 or 1 outputs), the tanh and
-//   its derivative and the loss rows stay on the CUDA cores, with accurate
-//   tanhf, expf and IEEE division (no fast-math).
-// * Gradient accumulators in registers: the running dW2 (128 x 128) and dW1
-//   (128 x 80) are MMA accumulator fragments, each warp a 32 x 64 tile of
-//   dW2 and a 32 x 40 tile of dW1 (104 floats a thread), for the CTA's whole
-//   walk. Each chunk's weight gradient is formed in fresh fragments and
-//   then added in, so that the tensor cores' own f32 sums run over one
-//   chunk's 64 rows only and the walk's sum is rounded to nearest. dW3 and
-//   the bias sums are per-thread sums in shared memory, the loss sums and
-//   b3 in the two loss warps' registers. At the end each CTA writes them
-//   once to its partial in the workspace (2, G, ACCS), the layout the
-//   reductions read.
-// * Activations in shared memory, swizzled: X^T (80 x 64), H1 and H2 (64 x
-//   128) and W2 hold entry (row, col) at row * width + (col ^ swz(row)), so
+//   serves one head (blockIdx.y); G CTAs per head walk the minibatch's
+//   chunks of CHUNK = 64 rows with stride G, in order.
+// * Weight-gradient slices (blockIdx.z): a CTA holds its dW2 and dW1 rows
+//   in registers for its whole walk, at most ACC_REGS floats a thread. Where
+//   H (H + K1) / 256 is more (H = 256, or H = 128 with obs wider than 80),
+//   NS = 2 or 4 CTAs share each walk, each recomputing every chunk's forward
+//   and backward and keeping the rows j of one slice of SL = H / NS units.
+// * Weights resident in shared memory where they fit beside the rest (H <=
+//   128 at obs <= 80): W1 (H x K1, rows padded to K1 + 4 floats), one copy
+//   of W2 (H x H, swizzled); the forward and the backward read the one W2
+//   through different fragment mappings. Otherwise (H = 256, or wider obs)
+//   the products read W1 and W2 from the weight pack in global memory
+//   through L1 and L2. W3 and the biases are always resident.
+// * Tensor cores: per chunk and head the forward X W1^T (K = K1, the obs
+//   zero-padded to a multiple of 16, or 32 at H = 32) and H1 W2^T, the data
+//   gradient g_h2 W2 and the weight gradients g_h2^T H1 and g_h1^T X, K =
+//   the chunk's 64 rows. In f32 mode in 3xTF32 (`mma_tf32.cuh`): each
+//   operand x split into hi = tf32(x) and lo = tf32(x - hi), lo hi + hi lo
+//   + hi hi with f32 sums (mma.sync m16n8k8), which keeps f32 accuracy. In
+//   bf16 mode one mma.sync m16n8k16 bf16 product with f32 sums, each
+//   operand rounded to bf16 to nearest even as it is read from shared
+//   memory, as the JAX kernel's astype(bfloat16) rounds it: shared memory
+//   keeps the f32 values, since the tanh derivatives (1 - h^2) and the bias
+//   sums read them in f32. The products through W3 (4 or 1 outputs), the
+//   tanh and its derivative and the loss rows stay on the CUDA cores, with
+//   accurate tanhf, expf and IEEE division (no fast-math); in bf16 mode the
+//   operands of the W3 products (h2, W3, the head's output gradients) are
+//   rounded to bf16 there too.
+// * Gradient accumulators in registers: the running dW2 and dW1 rows of the
+//   CTA's slice are MMA accumulator fragments for its whole walk (at H =
+//   128: each warp a 32 x 64 tile of dW2 and a 32 x 40 tile of dW1, 104
+//   floats a thread). Each chunk's weight gradient is formed in fresh
+//   fragments and then added in, so that the tensor cores' own f32 sums run
+//   over one chunk's 64 rows only and the walk's sum is rounded to nearest.
+//   dW3 and the bias sums are per-thread sums in shared memory, the loss
+//   sums and b3 in the two loss warps' registers. At the end each CTA writes
+//   them once to its partial in the workspace (2, G, ACCS), the layout the
+//   reductions read; slice z writes its rows, slice 0 the rest.
+// * Activations in shared memory, swizzled: X^T (K1 x 64), H1 and H2 (64 x
+//   H) and W2 hold entry (row, col) at row * width + (col ^ swz(row)), so
 //   that the fragment reads along rows and along columns both hit 32
 //   distinct banks. H1 is overwritten by g_h1 and H2 by g_h2 in place.
-// * Double-buffered inputs: while a chunk computes, the next chunk's obs and
-//   aux are copied by cp.async into the second buffer (B2: 16-byte copies of
-//   32-env feature rows; B3/B4: 4-byte copies, a row being 300 bytes).
+// * Double-buffered inputs: while a chunk computes, the next chunk's source
+//   rows are resolved into a table and its obs and aux copied by cp.async
+//   into the second buffer (B2: 16-byte copies of 4 envs of a feature row
+//   where the alignment allows; B3/B4: 4-byte copies, a row being OBS x 4
+//   bytes).
+// * Any obs width (WIDE): where X^T's two buffers do not fit beside the
+//   rest, or dW1 does not fit in registers with at most 4 slices (obs over
+//   160 at H = 256, over 288 at H = 128, over 352 at H = 64, over 384 at H
+//   = 32), X is not staged: the two products that read it (the first layer
+//   and dW1) read each entry from the batch in global memory through the
+//   chunk's source-row table (`XByRow`, `XByFeature`), and dW1's rows of the
+//   slice are summed in the CTA's own partial in the workspace, one
+//   8-column tile a warp at a time, read, added to and written back by the
+//   thread that owns the entry (so in a fixed order, as in registers). The
+//   slices then only hold dW2 (NS = 4 at H = 256, else 1). Nothing else
+//   changes; the trainer's instantiations are not WIDE.
 // * A second small kernel sums the G partials of each gradient entry in the
 //   order 0..G-1 (no float atomics, so two launches give the same bits) and
-//   writes the gradients in the (out, in) layout of `nn.Linear.weight`,
-//   biases as (out,); B4's reduction takes the Adam step there.
+//   writes the gradients of the model's real width in the (out, in) layout
+//   of `nn.Linear.weight`, biases as (out,); B4's reduction takes the Adam
+//   step there.
 //
-// Shared memory (bytes), one CTA of 256 threads per SM: W1 43,008, W2
-// 65,536, W3 2,112, biases 1,040; X^T 2 x 20,480 and aux 2 x 2,048 (two
+// Shared memory (bytes) at H = 128, OBS = 75, one CTA of 256 threads per
+// SM: W3 2,112, biases 1,040; X^T 2 x 20,480 and aux 2 x 2,048 (two
 // buffers); H1 and H2 32,768 each; head outputs 1,024; per-thread sums
-// 6,144; source rows 512: 229,968 of the 232,448 a CTA may have.
-// Registers: 104 accumulator floats a thread, plus a product's fresh
-// fragments (32 or 40) and its operands in hi/lo (20); ptxas (CUDA 12.8)
-// gives the B2 kernel 236 and the row-major one 239, with no spills.
+// 6,144; source-row tables 1,024; W1 43,008, W2 65,536: 230,480 of the
+// 232,448 a CTA may have. Registers: 104 accumulator floats a thread, plus
+// a product's fresh fragments (32 or 40) and its operands in hi/lo (20);
+// ptxas (CUDA 12.8) gave the B2 kernel 236 and the row-major one 239 at
+// this instantiation, with no spills (the build phase of chip_smoke.py
+// prints every instantiation's). In bf16 mode a product reads each operand
+// once instead of twice (hi and lo), and 16 deep instead of 8.
 //
 // Not wgmma: its TF32 form takes B (and A from shared memory) K-major
 // only, while the backward reads H1, g_h2 and W2 along the other axis; 3x
 // TF32 would need hi and lo copies of every shared operand, which do not
 // fit beside the resident weights; and a 64-row chunk is one M tile of a
 // serial forward-to-backward chain. So the products run on mma.sync,
-// which does not reach the tensor cores' full TF32 rate (only wgmma does).
+// which does not reach the tensor cores' full rate (only wgmma does).
 
 #pragma once
 
@@ -76,20 +118,53 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "mma_tf32.cuh"
+
+// The instantiation (set by the build; these defaults are the trainer's).
+#ifndef AQE_H
+#define AQE_H 128
+#endif
+#ifndef AQE_OBS
+#define AQE_OBS 75
+#endif
+#ifndef AQE_BF16
+#define AQE_BF16 0
+#endif
 
 namespace ppo_grad {
 
-constexpr int OBS = 75;
-constexpr int K1 = 80;     // OBS padded to a multiple of the MMA depth; inputs 75-79 are zero
-constexpr int OBS_P = 76;  // row stride of dW1 in the partial layout
-constexpr int H = 128;
+constexpr int H = AQE_H;
+constexpr int OBS = AQE_OBS;
+constexpr bool BF16 = AQE_BF16 != 0;
 constexpr int NA = 4;      // actor outputs; the critic's one output is padded to 4
 constexpr int CHUNK = 64;  // rows per chunk
 constexpr int THREADS = 256;
+constexpr int KQ = 16 + 16 * (H == 32);       // K1's quantum: dW1's warp tiling, bf16's depth
+constexpr int K1 = (OBS + KQ - 1) / KQ * KQ;  // OBS padded; inputs OBS..K1-1 are zero
+constexpr int OBS_P = (OBS + 3) / 4 * 4;      // row stride of dW1 in the partial layout
+constexpr int ACC_REGS = 104;                 // accumulator floats a thread, at most
+constexpr int SMEM_MAX = 232448;              // a CTA's shared memory on the H100
+// Shared memory (floats) of everything but X^T and the resident weights.
+constexpr int BASE_FLOATS = NA * (H + 4) + 2 * H + NA + 2 * 8 * CHUNK + 2 * CHUNK * H +
+                            CHUNK * NA + 6 * THREADS + 4 * CHUNK;
+// The slices that keep dW2 and dW1 in ACC_REGS: 1, 2 or 4, the fewest.
+constexpr int NS_REG = (1 + (H * (H + K1) / THREADS > ACC_REGS) +
+                        2 * ((H / 2) * (H + K1) / THREADS > ACC_REGS));
+// Obs too wide for that layout (X^T's two buffers in shared memory, dW1 in
+// registers): X is read from the batch in global memory instead of being
+// staged, and dW1 is summed in the CTA's partial in the workspace.
+constexpr bool WIDE = !((BASE_FLOATS + 2 * K1 * CHUNK) * 4 <= SMEM_MAX &&
+                        (H / NS_REG) * (H + K1) / THREADS <= ACC_REGS &&
+                        (H / NS_REG >= 64 || NS_REG == 1));
+// Weight-gradient slices: the fewest that keep the register accumulators
+// (dW2 alone where WIDE) in ACC_REGS.
+constexpr int NS = !WIDE ? NS_REG : (H * H / THREADS <= ACC_REGS ? 1 : 4);
+constexpr int SL = H / NS;                    // dW2 and dW1 rows of one slice
 
 // Packed weights of one head (floats), built by the wrapper.
-constexpr int P_W1 = 0;                    // [H][K1]  W1 (out, in), inputs 75-79 zero
+constexpr int P_W1 = 0;                    // [H][K1]  W1 (out, in), inputs OBS.. zero
 constexpr int P_W2 = P_W1 + H * K1;        // [H][H]   W2 (out, in)
 constexpr int P_W3 = P_W2 + H * H;         // [NA][H]  W3 (out, in), zero rows pad
 constexpr int P_B1 = P_W3 + NA * H;
@@ -105,42 +180,76 @@ constexpr int A_W3 = A_W2 + H * H;         // [NA][H]
 constexpr int A_B1 = A_W3 + NA * H;
 constexpr int A_B2 = A_B1 + H;
 constexpr int A_B3 = A_B2 + H;
-constexpr int ACC = A_B3 + NA;             // 26,884
+constexpr int ACC = A_B3 + NA;             // 26,884 at H = 128, OBS = 75
 constexpr int NMET = 4;                    // actor sum, critic sum, ratio max, pad
 constexpr int ACCS = ACC + NMET;
 
-// Shared memory (floats).
+// Shared memory (floats); the resident weights last, where they fit.
 constexpr int W1_LD = K1 + 4;              // row strides padded against bank conflicts
 constexpr int W3_LD = H + 4;
-constexpr int S_W1 = 0;                        // [H][W1_LD]
-constexpr int S_W2 = S_W1 + H * W1_LD;         // [H][H] swizzled
-constexpr int S_W3 = S_W2 + H * H;             // [NA][W3_LD]
+constexpr int S_W3 = 0;                        // [NA][W3_LD]
 constexpr int S_B1 = S_W3 + NA * W3_LD;        // b1, b2, b3 as in the pack
 constexpr int S_B2 = S_B1 + H;
 constexpr int S_B3 = S_B2 + H;
 constexpr int S_X = S_B3 + NA;                 // [2][K1][CHUNK] swizzled: inputs, transposed
-constexpr int S_AUX = S_X + 2 * K1 * CHUNK;    // [2][8][CHUNK]: aux rows 0-6, row 7 live flags
+constexpr int S_AUX = S_X + 2 * K1 * CHUNK * !WIDE;  // [2][8][CHUNK]: aux 0-6, row 7 live flags
 constexpr int S_H1 = S_AUX + 2 * 8 * CHUNK;    // [CHUNK][H] swizzled: h1, then g_h1
 constexpr int S_H2 = S_H1 + CHUNK * H;         // [CHUNK][H] swizzled: h2, then g_h2
 constexpr int S_GO = S_H2 + CHUNK * H;         // [CHUNK][NA] head outputs, then their gradients
 constexpr int S_SUM = S_GO + CHUNK * NA;       // [6][THREADS] per-thread sums: dW3 (4), b2, b1
-constexpr int S_ROWS = S_SUM + 6 * THREADS;    // [2][CHUNK] int source rows (row-major loader)
-constexpr int SMEM_FLOATS = S_ROWS + 2 * CHUNK;
-constexpr int SMEM_BYTES = SMEM_FLOATS * (int)sizeof(float);
+constexpr int S_ROWS = S_SUM + 6 * THREADS;    // [2][2][CHUNK] ints: each chunk's source rows
+constexpr int S_W1 = S_ROWS + 4 * CHUNK;       // [H][W1_LD] resident W1
+constexpr int S_W2 = S_W1 + H * W1_LD;         // [H][H] resident W2, swizzled
+constexpr int RESIDENT_W = (S_W2 + H * H) * 4 <= SMEM_MAX;  // 1: W1 and W2 resident
+constexpr bool RESIDENT = RESIDENT_W != 0;
+constexpr int SMEM_FLOATS = S_W1 + RESIDENT_W * (H * W1_LD + H * H);
+constexpr int SMEM_BYTES = SMEM_FLOATS * 4;
 
-// Flat output: the 12 gradient leaves in flax leaf order, (out, in)
-// kernels and (out,) biases, then the 3 metrics.
-constexpr int O_ACTOR = OBS * H + H + H * H + H + NA * H + NA;  // 26,756
-constexpr int O_CRITIC = OBS * H + H + H * H + H + H + 1;       // 26,369
-constexpr int O_GRADS = O_ACTOR + O_CRITIC;
-constexpr int N_OUT = O_GRADS + 3;
+// Warp tilings over the 8 warps (WM along the output's rows, WN along its
+// columns; a warp's tile TM x TN in passes of at most 32 columns):
+// (a) the chunk-by-unit products (both forward layers, the data gradient):
+//     64 x H;
+constexpr int A_WM = H == 32 ? 4 : 2, A_WN = 8 / A_WM;
+constexpr int A_TM = CHUNK / A_WM, A_TN = H / A_WN;
+constexpr int A_PN = A_TN < 32 ? A_TN : 32;
+constexpr int A_MT = A_TM / 16, A_NT = A_PN / 8, A_PASSES = A_TN / A_PN;
+// (b) dW2, the slice's SL rows x H;
+constexpr int B_WM = SL >= 64 ? 4 : 2, B_WN = 8 / B_WM;
+constexpr int B_TM = SL / B_WM, B_TN = H / B_WN;
+constexpr int B_PN = B_TN < 32 ? B_TN : 32;
+constexpr int B_MT = B_TM / 16, B_NT = B_PN / 8, B_PASSES = B_TN / B_PN;
+// (c) dW1, the slice's SL rows x K1 in one pass (WIDE: in passes of one
+//     8-column tile a warp, added to the partial in global memory).
+constexpr int C_WM = B_WM, C_WN = B_WN;
+constexpr int C_TM = SL / C_WM, C_TN = WIDE ? 8 : K1 / C_WN;
+constexpr int C_MT = C_TM / 16, C_NT = C_TN / 8;
+// The per-unit passes (back_out, the b1 sums): RS segments of the rows.
+constexpr int RS = THREADS / H, RROWS = CHUNK / RS;
 
-static_assert(ACC % 4 == 0 && PACK % 4 == 0 && ACCS % 4 == 0, "float4 alignment");
-static_assert(S_W2 % 4 == 0 && S_W3 % 4 == 0 && S_X % 4 == 0 && S_AUX % 4 == 0 &&
-              S_H1 % 4 == 0 && S_H2 % 4 == 0 && S_GO % 4 == 0, "float4 alignment");
-static_assert(SMEM_BYTES <= 232448, "more shared memory than a CTA may have");
-static_assert(CHUNK == 64 && THREADS == 256 && H == 128 && K1 % 8 == 0 &&
-              THREADS == 2 * H && CHUNK * NA == THREADS, "tile mappings assume these");
+// Flat output at the model's real width hr: the 12 gradient leaves in flax
+// leaf order, (out, in) kernels and (out,) biases, then the 3 metrics.
+__host__ __device__ constexpr int out_actor(int hr) {
+  return OBS * hr + hr + hr * hr + hr + NA * hr + NA;
+}
+__host__ __device__ constexpr int out_critic(int hr) {
+  return OBS * hr + hr + hr * hr + hr + hr + 1;
+}
+__host__ __device__ constexpr int out_floats(int hr) {
+  return out_actor(hr) + out_critic(hr) + 3;
+}
+
+static_assert(H == 32 || H == 64 || H == 128 || H == 256, "the instantiated widths");
+static_assert(ACC % 4 == 0 && PACK % 4 == 0 && ACCS % 4 == 0 && K1 % 16 == 0, "alignment");
+static_assert(S_X % 4 == 0 && S_AUX % 4 == 0 && S_H1 % 4 == 0 && S_H2 % 4 == 0 &&
+              S_GO % 4 == 0 && S_W1 % 4 == 0 && S_W2 % 4 == 0, "float4 alignment");
+static_assert(SMEM_BYTES <= SMEM_MAX, "more shared memory than a CTA may have");
+static_assert(SL * (H + (WIDE ? 0 : K1)) / THREADS <= ACC_REGS && (SL >= 64 || NS == 1),
+              "more accumulators than ACC_REGS");
+static_assert(BASE_FLOATS == S_W1 - (S_AUX - S_X), "BASE_FLOATS is the layout but X^T");
+static_assert(A_TM % 16 == 0 && A_PN % 8 == 0 && B_TM % 16 == 0 && B_PN % 8 == 0 &&
+              C_TM % 16 == 0 && C_TN % 8 == 0 && K1 % (8 * C_WN) == 0, "warp tilings");
+static_assert(CHUNK == 64 && THREADS == 256 && CHUNK * NA == THREADS && THREADS % H == 0,
+              "tile mappings assume these");
 
 // The loss's constants: 1/std, the logprob's constant 4 (log std +
 // log(2 pi) / 2), the clip band's bounds and 1 / minibatch rows.
@@ -149,14 +258,23 @@ struct LossConsts {
 };
 
 // What a CTA carries over its walk in registers: its warp's tiles of the
-// running dW2 (32 x 64) and dW1 (32 x 40) as MMA accumulator fragments, and
+// running dW2 and dW1 rows of its slice as MMA accumulator fragments, and
 // in the two loss warps (threads < CHUNK) the sums over their rows: the
 // head's loss (lane 0), the ratio max (lane 0) and b3's gradient (each lane).
+// Where WIDE, dW1's rows of the slice are summed in the CTA's partial at dw1g
+// instead (each thread its own entries, so no other thread reads them).
 struct Walk {
-  float dw2[2][8][4];
-  float dw1[2][5][4];
+  float dw2[B_MT][B_TN / 8][4];
+  float dw1[C_MT][C_NT][4];
   float actor, critic, rmax, b3[NA];
+  float* dw1g;
 };
+
+// The weights' fragment views: in shared memory where resident, else in
+// the head's pack in global memory (the same constructor either way).
+using W1View = std::conditional_t<RESIDENT, RowsPlain<W1_LD>, RowsPlain<K1>>;
+using W2Fwd = std::conditional_t<RESIDENT, RowsSwz<H>, RowsPlain<H>>;
+using W2Bwd = std::conditional_t<RESIDENT, ColsSwz<H>, ColsPlain<H>>;
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
@@ -167,6 +285,58 @@ __device__ __forceinline__ float4 lds4(const float* p) {
 __device__ __forceinline__ void sts4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
 }
+// The batch's obs in global memory, for the WIDE reads: entry (r, f) of
+// the chunk's X is p[t * rs + f * fs + e], (t, e) row r's entries (r, CHUNK
+// + r) of the chunk's source-row table; 0 for f >= OBS and where t < 0
+// (padding, or a bad block id, whose live aux row poisons the loss).
+struct XRows {
+  const float* p;
+  size_t rs;
+  int fs;
+};
+
+struct XGather {
+  XRows src;
+  const int* tab;
+  __device__ __forceinline__ float x(int r, int f) const {
+    const int t = tab[r];
+    return t >= 0 && f < OBS ? __ldg(src.p + (size_t)t * src.rs + (size_t)f * src.fs + tab[CHUNK + r])
+                             : 0.f;
+  }
+};
+
+// X as the first layer's operand A, entry (idx, k) = x(row idx, feature k),
+// as ColsSwz<CHUNK> reads it from X^T in shared memory.
+struct XByRow {
+  XGather xg;
+  int i0, g, t;
+  __device__ __forceinline__ XByRow(const XGather& x, int idx0)
+      : xg(x), i0(idx0), g((threadIdx.x & 31) >> 2), t(threadIdx.x & 3) {}
+  __device__ __forceinline__ float at(int c, int q, int i) const {
+    return xg.x(i0 + 8 * c + g, 8 * i + t + 4 * q);
+  }
+  __device__ __forceinline__ float2 pair(int ri, int k) const {
+    return make_float2(xg.x(i0 + ri, k), xg.x(i0 + ri, k + 1));
+  }
+};
+
+// X as dW1's operand B, entry (idx, k) = x(row k, feature idx), as
+// RowsSwz<CHUNK> reads it from X^T in shared memory.
+struct XByFeature {
+  XGather xg;
+  int i0, g, t;
+  __device__ __forceinline__ XByFeature(const XGather& x, int idx0)
+      : xg(x), i0(idx0), g((threadIdx.x & 31) >> 2), t(threadIdx.x & 3) {}
+  __device__ __forceinline__ float at(int c, int q, int i) const {
+    return xg.x(8 * i + t + 4 * q, i0 + 8 * c + g);
+  }
+  __device__ __forceinline__ float2 pair(int ri, int k) const {
+    return make_float2(xg.x(k, i0 + ri), xg.x(k + 1, i0 + ri));
+  }
+};
+
+// x as a product's operand: rounded to bf16 in bf16 mode.
+__device__ __forceinline__ float opnd(float x) { return BF16 ? bf16r(x) : x; }
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -179,34 +349,58 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// Forward hidden layer on the (64 rows x 128 units) output, each warp the
-// 32 x 32 tile at rows m0 = 32 (warp % 2), units n0 = 32 (warp / 2):
-// dst[r][j] = tanh(sum_k A(r, k) B(k, j) + bias[j]), dst swizzled.
-template <class VA, class VB>
-__device__ __forceinline__ void dense_tanh(const VA& a, const VB& b, int steps,
-                                           const float* bias, float* dst) {
+// acc += A B over `depth` (a multiple of 16) in the instantiation's
+// precision: 3xTF32 or bf16.
+template <int MT, int NT, class VA, class VB>
+__device__ __forceinline__ void tile_mma(float (&acc)[MT][NT][4], const VA& a, const VB& b,
+                                         int depth) {
+  if constexpr (BF16) {
+    warp_mma_bf16(acc, a, b, depth / 16);
+  } else {
+    warp_mma(acc, a, b, depth / 8);
+  }
+}
+
+// A (64 rows x H units) layer on tiling (a): dst[r][j] = f(sum_k A(r, k)
+// B(k, j)) with A and B the views `va(m0)` and `vb(n0)`, dst swizzled; f is
+// tanh(. + bias[j]) for a forward layer, or (. (1 - h^2)) with h the entry
+// of dst it overwrites for the data gradient (bias null).
+template <class MA, class MB>
+__device__ __forceinline__ void rows_by_units(const MA& va, const MB& vb, int depth,
+                                              const float* bias, float* dst) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int m0 = 32 * (warp & 1), n0 = 32 * (warp >> 1);
-  float acc[2][4][4];
-  zero(acc);
-  warp_mma(acc, a, b, steps);
+  const int m0 = A_TM * (warp % A_WM), nw = A_TN * (warp / A_WM);
+  const auto a = va(m0);
 #pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-    const int j = n0 + 8 * nt + 2 * t;
-    const float b0 = bias[j], b1 = bias[j + 1];
+  for (int p = 0; p < A_PASSES; ++p) {
+    const int n0 = nw + A_PN * p;
+    float acc[A_MT][A_NT][4];
+    zero(acc);
+    tile_mma(acc, a, vb(n0), depth);
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
+    for (int nt = 0; nt < A_NT; ++nt) {
+      const int j = n0 + 8 * nt + 2 * t;
+      const float b0 = bias ? bias[j] : 0.f, b1 = bias ? bias[j + 1] : 0.f;
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int r = m0 + 16 * mt + g + 8 * hh;
-        *reinterpret_cast<float2*>(dst + r * H + (j ^ swz(r))) =
-            make_float2(tanhf(acc[mt][nt][2 * hh] + b0), tanhf(acc[mt][nt][2 * hh + 1] + b1));
-      }
+      for (int mt = 0; mt < A_MT; ++mt)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int r = m0 + 16 * mt + g + 8 * hh;
+          float2* d = reinterpret_cast<float2*>(dst + r * H + (j ^ swz(r)));
+          const float x0 = acc[mt][nt][2 * hh], x1 = acc[mt][nt][2 * hh + 1];
+          if (bias) {
+            *d = make_float2(tanhf(x0 + b0), tanhf(x1 + b1));
+          } else {
+            const float2 h = *d;
+            *d = make_float2(x0 * (1.f - h.x * h.x), x1 * (1.f - h.y * h.y));
+          }
+        }
+    }
   }
 }
 
 // The head's outputs, one (row, output) per thread, into GO: tanh for the
-// actor's mean, linear for the critic.
+// actor's mean, linear for the critic (W3 is stored as an operand already).
 __device__ __forceinline__ void head_outputs(float* S, int head) {
   const int r = threadIdx.x >> 2, o = threadIdx.x & 3, sw = swz(r);
   const float* h = S + S_H2 + r * H;
@@ -215,10 +409,10 @@ __device__ __forceinline__ void head_outputs(float* S, int head) {
 #pragma unroll 8
   for (int k = 0; k < H; k += 4) {
     const float4 hv = lds4(h + (k ^ sw)), wv = lds4(w + k);
-    s = fmaf(hv.x, wv.x, s);
-    s = fmaf(hv.y, wv.y, s);
-    s = fmaf(hv.z, wv.z, s);
-    s = fmaf(hv.w, wv.w, s);
+    s = fmaf(opnd(hv.x), wv.x, s);
+    s = fmaf(opnd(hv.y), wv.y, s);
+    s = fmaf(opnd(hv.z), wv.z, s);
+    s = fmaf(opnd(hv.w), wv.w, s);
   }
   s += S[S_B3 + o];
   S[S_GO + r * NA + o] = head == 0 ? tanhf(s) : s;
@@ -270,11 +464,11 @@ __device__ __forceinline__ void loss_rows(const float* AUX, float* GO, int head,
   }
 }
 
-// Backward through the output layer, one hidden unit k and half the rows a
+// Backward through the output layer, one hidden unit k and RROWS rows a
 // thread: g_h2[r][k] = (sum_o GO[r][o] W3[o][k]) (1 - h2^2) in place of h2;
 // its sums of GO[r][o] h2[r][k] (dW3) and of g_h2 (b2) into its own slots.
 __device__ __forceinline__ void back_out(float* S) {
-  const int k = threadIdx.x & (H - 1), r0 = (threadIdx.x >> 7) * (CHUNK / 2);
+  const int k = threadIdx.x % H, r0 = (threadIdx.x / H) * RROWS;
   float w3[NA], d3[NA], sb = 0.f;
 #pragma unroll
   for (int o = 0; o < NA; ++o) {
@@ -284,20 +478,19 @@ __device__ __forceinline__ void back_out(float* S) {
   float* H2 = S + S_H2;
   const float* GO = S + S_GO;
 #pragma unroll 4
-  for (int r = r0; r < r0 + CHUNK / 2; ++r) {
-    const float4 go = lds4(GO + r * NA);
+  for (int r = r0; r < r0 + RROWS; ++r) {
+    const float4 g4 = lds4(GO + r * NA);
+    const float go[NA] = {opnd(g4.x), opnd(g4.y), opnd(g4.z), opnd(g4.w)};
     float* p = H2 + r * H + (k ^ swz(r));
-    const float h = *p;
-    float s = go.x * w3[0];
-    s = fmaf(go.y, w3[1], s);
-    s = fmaf(go.z, w3[2], s);
-    s = fmaf(go.w, w3[3], s);
+    const float h = *p, hq = opnd(h);
+    float s = go[0] * w3[0];
+    s = fmaf(go[1], w3[1], s);
+    s = fmaf(go[2], w3[2], s);
+    s = fmaf(go[3], w3[3], s);
     const float gh = s * (1.f - h * h);
     *p = gh;
-    d3[0] = fmaf(go.x, h, d3[0]);
-    d3[1] = fmaf(go.y, h, d3[1]);
-    d3[2] = fmaf(go.z, h, d3[2]);
-    d3[3] = fmaf(go.w, h, d3[3]);
+#pragma unroll
+    for (int o = 0; o < NA; ++o) d3[o] = fmaf(go[o], hq, d3[o]);
     sb += gh;
   }
   float* sum = S + S_SUM + threadIdx.x;
@@ -306,86 +499,107 @@ __device__ __forceinline__ void back_out(float* S) {
   sum[4 * THREADS] += sb;
 }
 
-// dW2[j][i] += sum_r g_h2[r][j] h1[r][i] over the chunk, each warp its 32 x
-// 64 tile in two passes of 32 x 32 fresh fragments.
-__device__ __forceinline__ void grad_w2(const float* G2, const float* H1, Walk& w) {
+// dW2[j][i] += sum_r g_h2[r][j] h1[r][i] over the chunk for the slice's
+// rows j, each warp its tile in passes of fresh fragments.
+__device__ __forceinline__ void grad_w2(const float* G2, const float* H1, Walk& w, int slice) {
   const int warp = threadIdx.x >> 5;
-  const int m0 = 32 * (warp >> 1), n0 = 64 * (warp & 1);
+  const int m0 = SL * slice + B_TM * (warp / B_WN), nw = B_TN * (warp % B_WN);
+  const ColsSwz<H> a(G2, m0);
 #pragma unroll
-  for (int p = 0; p < 2; ++p) {
-    float part[2][4][4];
+  for (int p = 0; p < B_PASSES; ++p) {
+    float part[B_MT][B_NT][4];
     zero(part);
-    warp_mma(part, ColsSwz<H>(G2, m0), ColsSwz<H>(H1, n0 + 32 * p), CHUNK / 8);
+    tile_mma(part, a, ColsSwz<H>(H1, nw + B_PN * p), CHUNK);
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
+    for (int mt = 0; mt < B_MT; ++mt)
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
+      for (int nt = 0; nt < B_NT; ++nt)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) w.dw2[mt][4 * p + nt][e] += part[mt][nt][e];
+        for (int e = 0; e < 4; ++e) w.dw2[mt][B_NT * p + nt][e] += part[mt][nt][e];
   }
 }
 
-// Backward through W2, each warp a 32 x 32 tile: g_h1[r][i] = (sum_j
-// g_h2[r][j] W2[j][i]) (1 - h1^2) in place of h1.
-__device__ __forceinline__ void back_hidden(const float* G2, const float* W2, float* H1) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int m0 = 32 * (warp & 1), n0 = 32 * (warp >> 1);
-  float acc[2][4][4];
-  zero(acc);
-  warp_mma(acc, RowsSwz<H>(G2, m0), ColsSwz<H>(W2, n0), H / 8);
+// WIDE: the thread's entries of a warp's 8-column tile (rows m0.., columns
+// n..) of dW1 in the partial at p, set to `part` or `part` added to them.
+__device__ __forceinline__ void dw1_tile_to(float* p, const float (&part)[C_MT][1][4], int m0,
+                                            int n, bool add) {
+  const int lane = threadIdx.x & 31, f = n + 2 * (lane & 3);
+  if (f >= OBS_P) return;
 #pragma unroll
-  for (int nt = 0; nt < 4; ++nt)
+  for (int mt = 0; mt < C_MT; ++mt)
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int r = m0 + 16 * mt + g + 8 * hh, i = n0 + 8 * nt + 2 * t;
-        float2* p = reinterpret_cast<float2*>(H1 + r * H + (i ^ swz(r)));
-        const float2 h = *p;
-        *p = make_float2(acc[mt][nt][2 * hh] * (1.f - h.x * h.x),
-                         acc[mt][nt][2 * hh + 1] * (1.f - h.y * h.y));
-      }
+    for (int hh = 0; hh < 2; ++hh) {
+      float2* d = reinterpret_cast<float2*>(p + (m0 + 16 * mt + (lane >> 2) + 8 * hh) * OBS_P + f);
+      const float2 v = add ? *d : make_float2(0.f, 0.f);
+      *d = make_float2(v.x + part[mt][0][2 * hh], v.y + part[mt][0][2 * hh + 1]);
+    }
 }
 
-// dW1[j][f] += sum_r g_h1[r][j] x[r][f] over the chunk, each warp its 32 x
-// 40 tile; then each thread's sum of g_h1 over half the rows of one unit (b1).
-__device__ __forceinline__ void grad_w1(float* S, const float* G1, const float* X, Walk& w) {
+// dW1[j][f] += sum_r g_h1[r][j] x[r][f] over the chunk for the slice's rows
+// j, each warp its tile (WIDE: its 8-column tiles in turn, x read through
+// `xg`, the sums in the partial); then each thread's sum of g_h1 over its
+// rows of one unit (b1).
+__device__ __forceinline__ void grad_w1(float* S, const float* G1, const float* X,
+                                        const XGather& xg, Walk& w, int slice) {
   const int warp = threadIdx.x >> 5;
-  const int m0 = 32 * (warp >> 1), n0 = 40 * (warp & 1);
-  float part[2][5][4];
-  zero(part);
-  warp_mma(part, ColsSwz<H>(G1, m0), RowsSwz<CHUNK>(X, n0), CHUNK / 8);
+  const int m0 = SL * slice + C_TM * (warp / C_WN), n0 = C_TN * (warp % C_WN);
+  if constexpr (WIDE) {
+    const ColsSwz<H> a(G1, m0);
+    for (int n = n0; n < K1; n += 8 * C_WN) {
+      float part[C_MT][1][4];
+      zero(part);
+      tile_mma(part, a, XByFeature(xg, n), CHUNK);
+      dw1_tile_to(w.dw1g, part, m0, n, true);
+    }
+  } else {
+    float part[C_MT][C_NT][4];
+    zero(part);
+    tile_mma(part, ColsSwz<H>(G1, m0), RowsSwz<CHUNK>(X, n0), CHUNK);
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+    for (int mt = 0; mt < C_MT; ++mt)
 #pragma unroll
-    for (int nt = 0; nt < 5; ++nt)
+      for (int nt = 0; nt < C_NT; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) w.dw1[mt][nt][e] += part[mt][nt][e];
-  const int k = threadIdx.x & (H - 1), r0 = (threadIdx.x >> 7) * (CHUNK / 2);
+        for (int e = 0; e < 4; ++e) w.dw1[mt][nt][e] += part[mt][nt][e];
+  }
+  const int k = threadIdx.x % H, r0 = (threadIdx.x / H) * RROWS;
   float s = 0.f;
 #pragma unroll 8
-  for (int r = r0; r < r0 + CHUNK / 2; ++r) s += G1[r * H + (k ^ swz(r))];
+  for (int r = r0; r < r0 + RROWS; ++r) s += G1[r * H + (k ^ swz(r))];
   S[S_SUM + 5 * THREADS + threadIdx.x] += s;
 }
 
-// A CTA's start: its head's weights (W from the wrapper's pack) into shared
-// memory, the zero inputs 75-79 of both input buffers, and zero sums.
-__device__ __forceinline__ void init_walk(float* S, const float* __restrict__ W, Walk& w) {
+// A CTA's start: its head's W3 (as an operand) and biases, and where
+// resident W1 and W2, from the wrapper's pack W into shared memory; the
+// zero inputs OBS..K1-1 of both input buffers, and zero sums (WIDE: its
+// entries of dW1 in its partial in the workspace (2, G, ACCS) too).
+__device__ __forceinline__ void init_walk(float* S, const float* __restrict__ W, Walk& w,
+                                          float* work, int G, int head, int slice) {
   const int tid = threadIdx.x;
-  for (int e = tid; e < H * K1 / 4; e += THREADS) {
-    const int j = e / (K1 / 4), f = 4 * (e % (K1 / 4));
-    sts4(S + S_W1 + j * W1_LD + f, ld4(W + P_W1 + j * K1 + f));
-  }
-  for (int e = tid; e < H * H / 4; e += THREADS) {
-    const int j = e / (H / 4), i = 4 * (e % (H / 4));
-    sts4(S + S_W2 + j * H + (i ^ swz(j)), ld4(W + P_W2 + j * H + i));
+  w.dw1g = work + ((size_t)head * G + blockIdx.x) * ACCS + A_W1;
+  if constexpr (WIDE) {
+    const int warp = tid >> 5, m0 = SL * slice + C_TM * (warp / C_WN);
+    float none[C_MT][1][4];
+    zero(none);
+    for (int n = C_TN * (warp % C_WN); n < K1; n += 8 * C_WN) dw1_tile_to(w.dw1g, none, m0, n, false);
   }
   for (int e = tid; e < NA * H / 4; e += THREADS) {
     const int o = e / (H / 4), k = 4 * (e % (H / 4));
-    sts4(S + S_W3 + o * W3_LD + k, ld4(W + P_W3 + o * H + k));
+    const float4 v = ld4(W + P_W3 + o * H + k);
+    sts4(S + S_W3 + o * W3_LD + k, make_float4(opnd(v.x), opnd(v.y), opnd(v.z), opnd(v.w)));
   }
   for (int e = tid; e < 2 * H + NA; e += THREADS) S[S_B1 + e] = __ldg(W + P_B1 + e);
-  for (int e = tid; e < 2 * (K1 - OBS) * CHUNK; e += THREADS) {
+  if constexpr (RESIDENT) {
+    for (int e = tid; e < H * K1 / 4; e += THREADS) {
+      const int j = e / (K1 / 4), f = 4 * (e % (K1 / 4));
+      sts4(S + S_W1 + j * W1_LD + f, ld4(W + P_W1 + j * K1 + f));
+    }
+    for (int e = tid; e < H * H / 4; e += THREADS) {
+      const int j = e / (H / 4), i = 4 * (e % (H / 4));
+      sts4(S + S_W2 + j * H + (i ^ swz(j)), ld4(W + P_W2 + j * H + i));
+    }
+  }
+  for (int e = tid; e < 2 * (K1 - OBS) * CHUNK * !WIDE; e += THREADS) {
     const int b = e / ((K1 - OBS) * CHUNK), rest = e % ((K1 - OBS) * CHUNK);
     S[S_X + b * K1 * CHUNK + OBS * CHUNK + rest] = 0.f;
   }
@@ -397,26 +611,37 @@ __device__ __forceinline__ void init_walk(float* S, const float* __restrict__ W,
   for (int o = 0; o < NA; ++o) w.b3[o] = 0.f;
 }
 
-// One chunk's forward and backward, added into the walk's sums. The caller
-// has staged the chunk in input buffer `buf` (X^T and aux, row 7 of aux the
-// rows' live flags) and passed a barrier. `next` stages the next chunk in
-// the other buffer; it runs once the first layer has read this chunk's X.
+// One chunk's forward and backward, added into the walk's sums of slice
+// `slice`. The caller has resolved the chunk's source rows into table `buf`
+// and staged it in input buffer `buf` (X^T, but where WIDE, and aux, row 7
+// of aux the rows' live flags) and passed a barrier. `W` is the head's pack
+// (read where the weights are not resident); `xr` the batch's obs (read
+// where WIDE). `next` stages the next chunk in the other buffer; it runs
+// once the first layer has read this chunk's X.
 template <class Next>
-__device__ __forceinline__ void chunk_grad(float* S, int buf, int head, const LossConsts& c,
-                                           Walk& w, const Next& next) {
+__device__ __forceinline__ void chunk_grad(float* S, const float* __restrict__ W, int buf,
+                                           int head, int slice, const LossConsts& c, Walk& w,
+                                           const XRows& xr, const Next& next) {
   const float* X = S + S_X + buf * K1 * CHUNK;
+  const XGather xg{xr, reinterpret_cast<const int*>(S + S_ROWS) + buf * 2 * CHUNK};
   const float* AUX = S + S_AUX + buf * 8 * CHUNK;
-  const float* W1 = S + S_W1;
-  const float* W2 = S + S_W2;
+  const float* W1 = RESIDENT ? S + S_W1 : W + P_W1;
+  const float* W2 = RESIDENT ? S + S_W2 : W + P_W2;
   float* H1 = S + S_H1;
   float* H2 = S + S_H2;
 
   // ---- forward
-  const int warp = threadIdx.x >> 5, m0 = 32 * (warp & 1), n0 = 32 * (warp >> 1);
-  dense_tanh(ColsSwz<CHUNK>(X, m0), RowsPlain<W1_LD>(W1, n0), K1 / 8, S + S_B1, H1);
+  if constexpr (WIDE) {
+    rows_by_units([&](int m) { return XByRow(xg, m); },
+                  [&](int n) { return W1View(W1, n); }, K1, S + S_B1, H1);
+  } else {
+    rows_by_units([&](int m) { return ColsSwz<CHUNK>(X, m); },
+                  [&](int n) { return W1View(W1, n); }, K1, S + S_B1, H1);
+  }
   __syncthreads();
   next();
-  dense_tanh(RowsSwz<H>(H1, m0), RowsSwz<H>(W2, n0), H / 8, S + S_B2, H2);
+  rows_by_units([&](int m) { return RowsSwz<H>(H1, m); },
+                [&](int n) { return W2Fwd(W2, n); }, H, S + S_B2, H2);
   __syncthreads();
   head_outputs(S, head);
   __syncthreads();
@@ -426,30 +651,40 @@ __device__ __forceinline__ void chunk_grad(float* S, int buf, int head, const Lo
   __syncthreads();
   back_out(S);                 // H2 <- g_h2
   __syncthreads();
-  grad_w2(H2, H1, w);
+  grad_w2(H2, H1, w, slice);
   __syncthreads();
-  back_hidden(H2, W2, H1);     // H1 <- g_h1
+  rows_by_units([&](int m) { return RowsSwz<H>(H2, m); },   // H1 <- g_h1
+                [&](int n) { return W2Bwd(W2, n); }, H, nullptr, H1);
   __syncthreads();
-  grad_w1(S, H1, X, w);
+  grad_w1(S, H1, X, xg, w, slice);
 }
 
-// The walk's sums into the CTA's partial in the workspace (2, G, ACCS).
-__device__ __forceinline__ void write_partial(float* S, float* work, int G, int head, Walk& w) {
+// The walk's sums into the CTA's partial in the workspace (2, G, ACCS):
+// every slice its rows of dW2 and dW1, slice 0 the rest.
+__device__ __forceinline__ void write_partial(float* S, float* work, int G, int head, int slice,
+                                              Walk& w) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
   float* out = work + ((size_t)head * G + blockIdx.x) * ACCS;
   {
-    const int m0 = 32 * (warp >> 1), n2 = 64 * (warp & 1), n1 = 40 * (warp & 1);
+    const int m2 = SL * slice + B_TM * (warp / B_WN), n2 = B_TN * (warp % B_WN);
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
+    for (int mt = 0; mt < B_MT; ++mt)
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
-        const int j = m0 + 16 * mt + g + 8 * hh;
+        const int j = m2 + 16 * mt + g + 8 * hh;
 #pragma unroll
-        for (int nt = 0; nt < 8; ++nt)
+        for (int nt = 0; nt < B_TN / 8; ++nt)
           *reinterpret_cast<float2*>(out + A_W2 + j * H + n2 + 8 * nt + 2 * t) =
               make_float2(w.dw2[mt][nt][2 * hh], w.dw2[mt][nt][2 * hh + 1]);
+      }
+    const int m1 = SL * slice + C_TM * (warp / C_WN), n1 = C_TN * (warp % C_WN);
 #pragma unroll
-        for (int nt = 0; nt < 5; ++nt) {
+    for (int mt = 0; mt < C_MT * !WIDE; ++mt)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int j = m1 + 16 * mt + g + 8 * hh;
+#pragma unroll
+        for (int nt = 0; nt < C_NT; ++nt) {
           const int f = n1 + 8 * nt + 2 * t;
           if (f < OBS_P)
             *reinterpret_cast<float2*>(out + A_W1 + j * OBS_P + f) =
@@ -457,15 +692,25 @@ __device__ __forceinline__ void write_partial(float* S, float* work, int G, int 
         }
       }
   }
+  if (slice != 0) return;  // the same for the whole CTA
   __syncthreads();  // every thread's sums in S_SUM are final; H1 is free
   const float* sum = S + S_SUM;
   for (int e = tid; e < NA * H; e += THREADS) {
     const int o = e / H, k = e % H;
-    out[A_W3 + e] = sum[o * THREADS + k] + sum[o * THREADS + H + k];
+    float s = 0.f;
+#pragma unroll
+    for (int seg = 0; seg < RS; ++seg) s += sum[o * THREADS + seg * H + k];
+    out[A_W3 + e] = s;
   }
-  if (tid < H) {
-    out[A_B2 + tid] = sum[4 * THREADS + tid] + sum[4 * THREADS + H + tid];
-    out[A_B1 + tid] = sum[5 * THREADS + tid] + sum[5 * THREADS + H + tid];
+  for (int k = tid; k < H; k += THREADS) {
+    float s2 = 0.f, s1 = 0.f;
+#pragma unroll
+    for (int seg = 0; seg < RS; ++seg) {
+      s2 += sum[4 * THREADS + seg * H + k];
+      s1 += sum[5 * THREADS + seg * H + k];
+    }
+    out[A_B2 + k] = s2;
+    out[A_B1 + k] = s1;
   }
   // The loss warps' sums: warp 1's to shared memory, added to warp 0's.
   float* x = S + S_H1;
@@ -492,36 +737,37 @@ __device__ __forceinline__ void write_partial(float* S, float* work, int G, int 
   }
 }
 
-// Where output entry e (< O_GRADS) lives: its head, its accumulator index,
-// its leaf (0..11, flax leaf order) and its offset in that leaf.
+// Where output entry e (< out_actor(hr) + out_critic(hr)) of the model's
+// real width hr lives: its head, its accumulator index in the padded
+// partial, its leaf (0..11, flax leaf order) and its offset in that leaf.
 struct Entry {
   int head, src, leaf, off;
 };
 
-__device__ __forceinline__ Entry locate(int e) {
+__device__ __forceinline__ Entry locate(int e, int hr) {
   Entry r;
-  r.head = e < O_ACTOR ? 0 : 1;
+  r.head = e < out_actor(hr) ? 0 : 1;
   r.leaf = 6 * r.head;
-  int k = e - r.head * O_ACTOR;
-  if (k < OBS * H) {
+  int k = e - r.head * out_actor(hr);
+  if (k < OBS * hr) {
     r.src = A_W1 + (k / OBS) * OBS_P + k % OBS;
-  } else if ((k -= OBS * H) < H) {
+  } else if ((k -= OBS * hr) < hr) {
     r.src = A_B1 + k;
     r.leaf += 1;
-  } else if ((k -= H) < H * H) {
-    r.src = A_W2 + k;
+  } else if ((k -= hr) < hr * hr) {
+    r.src = A_W2 + (k / hr) * H + k % hr;
     r.leaf += 2;
-  } else if ((k -= H * H) < H) {
+  } else if ((k -= hr * hr) < hr) {
     r.src = A_B2 + k;
     r.leaf += 3;
   } else {
-    k -= H;
+    k -= hr;
     const int n_out = r.head == 0 ? NA : 1;
-    if (k < n_out * H) {
-      r.src = A_W3 + k;
+    if (k < n_out * hr) {
+      r.src = A_W3 + (k / hr) * H + k % hr;
       r.leaf += 4;
     } else {
-      k -= n_out * H;
+      k -= n_out * hr;
       r.src = A_B3 + k;
       r.leaf += 5;
     }
@@ -549,16 +795,18 @@ __device__ __forceinline__ float reduce_metric(const float* __restrict__ work, i
   return s;
 }
 
-// Sum the G partials of every output entry in the order 0..G-1 and write
-// the gradients in leaf order, then the metrics.
-__global__ void reduce_kernel(const float* __restrict__ work, float* __restrict__ out, int G) {
+// Sum the G partials of every output entry of width hr in the order
+// 0..G-1 and write the gradients in leaf order, then the metrics.
+__global__ void reduce_kernel(const float* __restrict__ work, float* __restrict__ out, int G,
+                              int hr) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= N_OUT) return;
-  if (e >= O_GRADS) {
-    out[e] = reduce_metric(work, G, e - O_GRADS);
+  const int n_grads = out_actor(hr) + out_critic(hr);
+  if (e >= n_grads + 3) return;
+  if (e >= n_grads) {
+    out[e] = reduce_metric(work, G, e - n_grads);
     return;
   }
-  const Entry at = locate(e);
+  const Entry at = locate(e, hr);
   out[e] = sum_partials(work, G, at.head, at.src);
 }
 
@@ -567,10 +815,18 @@ __global__ void reduce_kernel(const float* __restrict__ work, float* __restrict_
 extern "C" {
 
 // Sizes the wrappers allocate by: floats per head of the weight pack, of
-// one CTA's partial, and of the flat output.
+// one CTA's partial, and of the flat output at width hr.
 int ppo_grad_pack_floats() { return ppo_grad::PACK; }
 int ppo_grad_partial_floats() { return ppo_grad::ACCS; }
-int ppo_grad_out_floats() { return ppo_grad::N_OUT; }
+int ppo_grad_out_floats(int hr) { return ppo_grad::out_floats(hr); }
+
+// The instantiation: 0 H, 1 OBS, 2 bf16, 3 K1, 4 slices, 5 weights
+// resident, 6 shared memory bytes, 7 WIDE.
+int ppo_grad_config(int i) {
+  using namespace ppo_grad;
+  const int v[] = {H, OBS, BF16 ? 1 : 0, K1, NS, RESIDENT ? 1 : 0, SMEM_BYTES, WIDE ? 1 : 0};
+  return i >= 0 && i < 8 ? v[i] : -1;
+}
 
 const char* cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

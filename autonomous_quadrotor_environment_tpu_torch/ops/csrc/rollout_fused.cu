@@ -8,6 +8,11 @@
 // `ops/rollout_fused.py` step body (`_policy`, `step_math`, `_pool_select`,
 // `_merge_reset`) computes, T times.
 //
+// One library per hidden width: the build (`ops/_build.py`) sets AQE_H to
+// 32, 64, 128 or 256, and a narrower model runs zero-padded on the next
+// width up (the wrapper pads the weight pack; a padded unit's activation is
+// tanh(0) = 0, so it adds exact zeros). The obs are the featurizer's 75.
+//
 // Bound. At B = 8192, T = 256, H = 128 the forward passes are about
 // 2.2e11 f32 FLOP (105,216 per env-step) against about 0.82 GB of device
 // memory traffic (obs and misc out, noise, pool and state in): 3.29 ms on
@@ -27,8 +32,13 @@
 //   the same launch, over the tile's T observations read back from obs.
 // * The actor's weights are resident in shared memory for the loop, the
 //   critic's in the same buffers after it, each loaded once per CTA: W1
-//   (128 x 80, inputs 75-79 zero, rows padded to 84), W2 (128 x 128,
-//   swizzled), W3 and the biases.
+//   (H x 80, inputs 75-79 zero, rows padded to 84), W2 (H x H, swizzled),
+//   W3 and the biases. At H = 256 W2 alone is 256 KB, more than a CTA's
+//   227 KB: there the products read W1 and W2 from the weight pack in
+//   global memory (each warp its own rows, each entry once per group-step
+//   and CTA, through L1 and L2), and only W3 and the biases are resident.
+//   That frees the room for the wider h1 (64 KB a group) and the critic
+//   pass's 128 KB of split h1.
 // * The products on the tensor cores in 3xTF32 (`mma_tf32.cuh`): each f32
 //   operand splits into hi and lo, a product is lo hi + hi lo + hi hi with
 //   f32 sums (mma.sync m16n8k8), which keeps f32 accuracy; single-pass TF32
@@ -40,7 +50,8 @@
 //   stays in the accumulators, from which each thread forms its units'
 //   share of the four means (or the value); the lanes and warps sum them.
 // * Two groups of 32 envs overlap the physics with the products: eight MMA
-//   warps run group 0's products, then group 1's, while warp 8 (group 0) or
+//   warps (at H >= 64 each 32 envs x H / 8 units, at H = 32 each 16 envs x
+//   8 units) run group 0's products, then group 1's, while warp 8 (group 0) or
 //   warp 9 (group 1) stores its group's observations and runs its sampling,
 //   physics, reward, record and reset, one thread per env. Named barriers
 //   hand each group back and forth (READY: state stepped; MEANS: partial
@@ -49,17 +60,19 @@
 //   the pace: the physics (3.7 us a step) never holds them up.
 // * The critic pass walks the tile's T chunks of 64 observations: chunk
 //   t + 1 is copied by cp.async while chunk t computes; each of the 8 warps
-//   owns a 32 x 32 tile of each layer; warps 8-9 write the values (misc row
-//   8).
+//   owns a (64 / R_WM) x (H / R_WN) tile of each layer (32 x 32 at H =
+//   128); warps 8-9 write the values (misc row 8).
 //
-// Shared memory (bytes), one CTA of 320 threads per SM: W1 43,008, W2
-// 65,536, W3 2,048, biases 1,056; the packed state (128 rows, 36,864) and,
+// Shared memory (bytes) at H = 128, one CTA of 320 threads per SM: W1
+// 43,008, W2 65,536, W3 2,048, biases 1,056; the packed state (128 rows,
+// 36,864) and,
 // in its place during the critic pass, two 80-row input buffers (46,080);
 // in the loop a group's split inputs 25,600, its split h1 32,768 and the
 // partial means 8,192, in their place during the critic pass the split h1
 // of 64 rows 65,536 and the partial values 1,024: 224,288 of the 232,448 a
-// CTA may have. Registers: 128 a thread, no spills (ptxas -v for sm_90a;
-// the build phase of chip_smoke.py prints them).
+// CTA may have; at H = 256 (weights in global memory) 185,648. Registers:
+// 128 a thread at H = 128, no spills (ptxas -v for sm_90a; the build phase
+// of chip_smoke.py prints every width's).
 //
 // Math stays accurate (no fast-math): tanhf, sqrtf and IEEE division; the
 // logprob needs no exp. Euler angles use the same Cephes atan2/asin
@@ -69,7 +82,13 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "mma_tf32.cuh"
+
+#ifndef AQE_H
+#define AQE_H 128
+#endif
 
 namespace {
 
@@ -83,7 +102,7 @@ using ppo_grad::swz;
 constexpr int ROWS = 128;
 constexpr int OBS = 75;
 constexpr int K1 = 80;            // OBS padded to the MMA depth; W1's inputs 75-79 are zero
-constexpr int H = 128;            // hidden width
+constexpr int H = AQE_H;          // hidden width of this library
 constexpr int NA = 4;             // action means
 constexpr int MISC = 16;
 constexpr int TILE = 64;          // envs per CTA
@@ -94,14 +113,36 @@ constexpr int THREADS = MMA_THREADS + 32 * (TILE / GROUP);
 constexpr int SLD = TILE + 8;     // row stride of the packed state and the critic's inputs
 constexpr int XLD = GROUP + 8;    // row stride of a group's split inputs
 constexpr int W1_LD = K1 + 4;     // row stride of W1
-constexpr int HP_GROUP = MMA_WARPS * NA * GROUP;  // one group's partial means
 constexpr int UNROLL = 4;         // depth steps of a product unrolled (4 beat 2 and 16)
+constexpr bool RESIDENT = H <= 128;  // W1 and W2 in shared memory; else read from global
+
+// The weight pack of one head (floats), as `ops/rollout_fused.py:weight_pack`
+// builds it (the gradient kernels' layout): W1 (H, K1), W2 (H, H), W3 (NA,
+// H) with zero rows past the head's outputs, b1, b2, b3 (NA).
+constexpr int P_W1 = 0;
+constexpr int P_W2 = P_W1 + H * K1;
+constexpr int P_W3 = P_W2 + H * H;
+constexpr int P_B1 = P_W3 + NA * H;
+constexpr int P_B2 = P_B1 + H;
+constexpr int P_B3 = P_B2 + H;
+constexpr int PACK = P_B3 + NA;
+
+// Warp tilings. The loop: a group's 32 envs x H units, L_WM x L_WN warps.
+// The critic pass: 64 envs x H units, R_WM x R_WN warps. Each warp slot
+// along the units (L_WN, R_WN of them) leaves its partial sums of the head.
+constexpr int L_WM = H == 32 ? 2 : 1, L_WN = MMA_WARPS / L_WM;
+constexpr int L_TM = GROUP / L_WM, L_TN = H / L_WN;
+constexpr int L_MT = L_TM / 16, L_NT = L_TN / 8;
+constexpr int R_WM = H == 32 ? 4 : 2, R_WN = MMA_WARPS / R_WM;
+constexpr int R_TM = TILE / R_WM, R_TN = H / R_WN;
+constexpr int R_MT = R_TM / 16, R_NT = R_TN / 8;
+constexpr int HP_GROUP = L_WN * NA * GROUP;  // one group's partial means
 
 // Shared memory (floats). Operands stored split hold their hi parts, then
 // at a fixed offset their lo parts.
-constexpr int S_W1 = 0;                          // [H][W1_LD] W1 (out, in)
-constexpr int S_W2 = S_W1 + H * W1_LD;           // [H][H] W2 (out, in), swizzled
-constexpr int S_W3 = S_W2 + H * H;               // [NA][H] W3, zero rows pad the critic's
+constexpr int S_W1 = 0;                          // [H][W1_LD] W1 (out, in), where resident
+constexpr int S_W2 = S_W1 + (RESIDENT ? H * W1_LD : 0);  // [H][H] W2 (out, in), swizzled
+constexpr int S_W3 = S_W2 + (RESIDENT ? H * H : 0);      // [NA][H] W3, zero rows pad the critic's
 constexpr int S_B1 = S_W3 + NA * H;
 constexpr int S_B2 = S_B1 + H;
 constexpr int S_B3 = S_B2 + H;                   // [NA], zero pad
@@ -109,11 +150,17 @@ constexpr int S_ST = S_B3 + NA + 4;              // [ROWS][SLD] state; then [2][
 constexpr int S_LB = S_ST + 2 * K1 * SLD;        // the layers' buffers, in the loop:
 constexpr int S_XS = S_LB;                       //   [2][K1][XLD] a group's inputs, split
 constexpr int S_H1 = S_XS + 2 * K1 * XLD;        //   [2][GROUP][H] its h1, split, swizzled
-constexpr int S_HP = S_H1 + 2 * GROUP * H;       //   [2][MMA_WARPS][NA][GROUP] partial means
+constexpr int S_HP = S_H1 + 2 * GROUP * H;       //   [2][L_WN][NA][GROUP] partial means
 constexpr int S_H1C = S_LB;                      // in the critic pass: [2][TILE][H] h1, split,
-constexpr int S_HPC = S_H1C + 2 * TILE * H;      //   swizzled; [4][TILE] partial values
-constexpr int SMEM_FLOATS = S_HP + 2 * HP_GROUP;
+constexpr int S_HPC = S_H1C + 2 * TILE * H;      //   swizzled; [R_WN][TILE] partial values
+constexpr int LOOP_END = S_HP + 2 * HP_GROUP, CRITIC_END = S_HPC + R_WN * TILE;
+constexpr int SMEM_FLOATS = LOOP_END > CRITIC_END ? LOOP_END : CRITIC_END;
 constexpr int SMEM_BYTES = SMEM_FLOATS * (int)sizeof(float);
+
+// The weights' fragment views: in shared memory where resident, else in
+// the head's pack in global memory (the same constructor either way).
+using W1View = std::conditional_t<RESIDENT, RowsPlain<W1_LD>, RowsPlain<K1>>;
+using W2View = std::conditional_t<RESIDENT, RowsSwz<H>, RowsPlain<H>>;
 
 // Named barriers (0 is __syncthreads): the MMA warps' own, and per group
 // READY (its state stepped, MMA warps wait) and MEANS (its partial means
@@ -121,16 +168,16 @@ constexpr int SMEM_BYTES = SMEM_FLOATS * (int)sizeof(float);
 constexpr int BAR_MMA = 1, BAR_READY = 2, BAR_MEANS = 4;
 constexpr int HANDOFF = MMA_THREADS + 32;
 
+static_assert(H == 32 || H == 64 || H == 128 || H == 256, "the instantiated widths");
 static_assert(ROWS * SLD <= 2 * K1 * SLD, "the inputs' buffers cover the state");
-static_assert(S_HPC + 4 * TILE <= SMEM_FLOATS, "the critic pass's buffers fit the loop's");
 static_assert(S_W2 % 4 == 0 && S_ST % 4 == 0 && S_XS % 4 == 0 && S_H1 % 4 == 0 &&
-              S_HP % 4 == 0 && S_H1C % 4 == 0 && S_HPC % 4 == 0 && SLD % 4 == 0,
-              "16-byte alignment");
+              S_HP % 4 == 0 && S_H1C % 4 == 0 && S_HPC % 4 == 0 && SLD % 4 == 0 &&
+              PACK % 4 == 0, "16-byte alignment");
 static_assert(SLD % 32 == 8 && XLD % 32 == 8,
               "ColsPlain reads conflict-free at a stride of 8 mod 32");
 static_assert(SMEM_BYTES <= 232448, "more shared memory than a CTA may have");
-static_assert(TILE == 2 * GROUP && GROUP == 32 && H == 128 && MMA_WARPS == 8,
-              "warp tilings assume these");
+static_assert(TILE == 2 * GROUP && GROUP == 32 && MMA_WARPS == 8 && L_TM % 16 == 0 &&
+              L_TN % 8 == 0 && R_TM % 16 == 0 && R_TN % 8 == 0, "warp tilings assume these");
 
 // Packed-state rows (ops/rollout_fused.py).
 constexpr int R_POS = 0, R_VEL = 3, R_QUAT = 6, R_OMEGA = 10, R_HIST = 13;
@@ -159,14 +206,6 @@ struct Consts {
   int terminal_replaces;
   float zero_ctrl, max_steps, inv_dt;
   int training;
-};
-
-// The 12 leaves as `nn.Linear` holds them: matrices (out, in), biases flat.
-struct Weights {
-  const float* w1; const float* b1; const float* w2; const float* b2;
-  const float* w3; const float* b3;
-  const float* v1; const float* c1; const float* v2; const float* c2;
-  const float* v3; const float* c3;
 };
 
 namespace {
@@ -400,29 +439,23 @@ __device__ __forceinline__ void bar_arrive(int id, int count) {
   asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
 }
 
-// One head's weights into shared memory, from the (out, in) leaves: W1 with
-// inputs 75-79 zero, W2 swizzled, W3 and b3 with rows n_out.. zero.
-__device__ __forceinline__ void load_head(float* sm, const float* __restrict__ w1,
-                                          const float* __restrict__ b1,
-                                          const float* __restrict__ w2,
-                                          const float* __restrict__ b2,
-                                          const float* __restrict__ w3,
-                                          const float* __restrict__ b3, int n_out) {
+// One head's weights into shared memory from its pack W: W3 and the biases
+// (W3 and b3 with zero rows past the head's outputs, as packed), and where
+// resident W1 (inputs 75-79 zero, as packed) and W2 swizzled.
+__device__ __forceinline__ void load_head(float* sm, const float* __restrict__ W) {
   const int tid = threadIdx.x;
-  for (int e = tid; e < H * W1_LD; e += THREADS) {
-    const int j = e / W1_LD, f = e % W1_LD;
-    sm[S_W1 + e] = f < OBS ? __ldg(w1 + j * OBS + f) : 0.f;
+  if constexpr (RESIDENT) {
+    for (int e = tid; e < H * W1_LD; e += THREADS) {
+      const int j = e / W1_LD, f = e % W1_LD;
+      sm[S_W1 + e] = f < K1 ? __ldg(W + P_W1 + j * K1 + f) : 0.f;
+    }
+    for (int e = tid; e < H * H; e += THREADS) {
+      const int j = e / H, i = e % H;
+      sm[S_W2 + j * H + (i ^ swz(j))] = __ldg(W + P_W2 + e);
+    }
   }
-  for (int e = tid; e < H * H; e += THREADS) {
-    const int j = e / H, i = e % H;
-    sm[S_W2 + j * H + (i ^ swz(j))] = __ldg(w2 + e);
-  }
-  for (int e = tid; e < NA * H; e += THREADS) sm[S_W3 + e] = e < n_out * H ? __ldg(w3 + e) : 0.f;
-  for (int e = tid; e < H; e += THREADS) {
-    sm[S_B1 + e] = __ldg(b1 + e);
-    sm[S_B2 + e] = __ldg(b2 + e);
-  }
-  if (tid < NA) sm[S_B3 + tid] = tid < n_out ? __ldg(b3 + tid) : 0.f;
+  for (int e = tid; e < NA * H; e += THREADS) sm[S_W3 + e] = __ldg(W + P_W3 + e);
+  for (int e = tid; e < 2 * H + NA; e += THREADS) sm[S_B1 + e] = __ldg(W + P_B1 + e);
 }
 
 // A hidden layer on the warp's MT x NT tiles of 16 x 8 at rows m0, units n0
@@ -529,7 +562,7 @@ __device__ __forceinline__ void stage_obs(float* X, const float* obs, int t, int
 
 __global__ void __launch_bounds__(THREADS, 1)
 rollout_kernel(const float* __restrict__ s0, const float* __restrict__ noise,
-               const float* __restrict__ pool, const Weights W,
+               const float* __restrict__ pool, const float* __restrict__ pack,
                float* __restrict__ obs_out, float* __restrict__ misc_out,
                float* __restrict__ s_out, int B, int T, int P, const Consts C,
                float action_std, float lp_const) {
@@ -542,7 +575,7 @@ rollout_kernel(const float* __restrict__ s0, const float* __restrict__ noise,
   const int b0 = blockIdx.x * TILE;
   const int nval = min(TILE, B - b0);
 
-  load_head(sm, W.w1, W.b1, W.w2, W.b2, W.w3, W.b3, NA);
+  load_head(sm, pack);
   for (int idx = tid; idx < ROWS * TILE; idx += THREADS) {
     const int r = idx / TILE, e = idx % TILE;
     S[r * SLD + e] = e < nval ? s0[(size_t)r * B + b0 + e] : 0.0f;
@@ -551,7 +584,9 @@ rollout_kernel(const float* __restrict__ s0, const float* __restrict__ noise,
 
   if (warp < MMA_WARPS) {
     // The MMA warps: group 0's products, then group 1's, T times.
-    const int n0 = 16 * warp;
+    const int m0 = L_TM * (warp % L_WM), slot = warp / L_WM, n0 = L_TN * slot;
+    const float* w1 = RESIDENT ? sm + S_W1 : pack + P_W1;
+    const float* w2 = RESIDENT ? sm + S_W2 : pack + P_W2;
     for (int h = 0; h < 2 * T; ++h) {
       const int grp = h & 1, c0 = GROUP * grp;
       bar_sync(BAR_READY + grp, HANDOFF);
@@ -564,15 +599,14 @@ rollout_kernel(const float* __restrict__ s0, const float* __restrict__ noise,
         sm[S_XS + K1 * XLD + k * XLD + e] = x.y;
       }
       bar_sync(BAR_MMA, MMA_THREADS);
-      // (2) layer 1, each warp the group's 32 envs x 16 units
-      hidden_tanh<2, 2>(Split<ColsPlain<XLD>>(sm + S_XS, K1 * XLD, 0),
-                        RowsPlain<W1_LD>(sm + S_W1, n0), K1 / 8, sm + S_B1, 0, n0, sm + S_H1,
-                        GROUP * H);
+      // (2) layer 1, each warp L_TM of the group's envs x L_TN units
+      hidden_tanh<L_MT, L_NT>(Split<ColsPlain<XLD>>(sm + S_XS, K1 * XLD, m0), W1View(w1, n0),
+                              K1 / 8, sm + S_B1, m0, n0, sm + S_H1, GROUP * H);
       bar_sync(BAR_MMA, MMA_THREADS);
       // (3) layer 2 and each warp's share of the 4 means
-      hidden_head<2, 2, NA>(Split<RowsSwz<H>>(sm + S_H1, GROUP * H, 0),
-                            RowsSwz<H>(sm + S_W2, n0), H / 8, sm + S_B2, sm + S_W3, 0, n0, warp,
-                            GROUP, HP + grp * HP_GROUP);
+      hidden_head<L_MT, L_NT, NA>(Split<RowsSwz<H>>(sm + S_H1, GROUP * H, m0), W2View(w2, n0),
+                                  H / 8, sm + S_B2, sm + S_W3, m0, n0, slot, GROUP,
+                                  HP + grp * HP_GROUP);
       bar_arrive(BAR_MEANS + grp, HANDOFF);
     }
   } else {
@@ -603,7 +637,7 @@ rollout_kernel(const float* __restrict__ s0, const float* __restrict__ noise,
       for (int o = 0; o < NA; ++o) {
         float m = part[o * GROUP];
 #pragma unroll
-        for (int w = 1; w < MMA_WARPS; ++w) m += part[(w * NA + o) * GROUP];
+        for (int w = 1; w < L_WN; ++w) m += part[(w * NA + o) * GROUP];
         a_raw[o] = tanhf(m + sm[S_B3 + o]) + action_std * eps[o];
         lp[o] = -0.5f * eps[o] * eps[o] - lp_const;
       }
@@ -641,7 +675,7 @@ rollout_kernel(const float* __restrict__ s0, const float* __restrict__ noise,
     const int r = idx / TILE, e = idx % TILE;
     if (e < nval) s_out[(size_t)r * B + b0 + e] = S[r * SLD + e];
   }
-  load_head(sm, W.v1, W.c1, W.v2, W.c2, W.v3, W.c3, 1);
+  load_head(sm, pack + PACK);
   __syncthreads();
 
   // (5) the critic over the T observation chunks of the tile: misc row 8.
@@ -662,22 +696,23 @@ rollout_kernel(const float* __restrict__ s0, const float* __restrict__ noise,
       ppo_grad::cp_async_commit();
     }
     if (warp < MMA_WARPS) {
-      const int m0 = 32 * (warp & 1), n0 = 32 * (warp >> 1);
-      hidden_tanh<2, 4>(ColsPlain<SLD>(X + (t & 1) * K1 * SLD, m0),
-                        RowsPlain<W1_LD>(sm + S_W1, n0), K1 / 8, sm + S_B1, m0, n0,
-                        sm + S_H1C, TILE * H);
+      const int m0 = R_TM * (warp % R_WM), slot = warp / R_WM, n0 = R_TN * slot;
+      const float* v1 = RESIDENT ? sm + S_W1 : pack + PACK + P_W1;
+      const float* v2 = RESIDENT ? sm + S_W2 : pack + PACK + P_W2;
+      hidden_tanh<R_MT, R_NT>(ColsPlain<SLD>(X + (t & 1) * K1 * SLD, m0), W1View(v1, n0),
+                              K1 / 8, sm + S_B1, m0, n0, sm + S_H1C, TILE * H);
       bar_sync(BAR_MMA, MMA_THREADS);
-      hidden_head<2, 4, 1>(Split<RowsSwz<H>>(sm + S_H1C, TILE * H, m0),
-                           RowsSwz<H>(sm + S_W2, n0), H / 8, sm + S_B2, sm + S_W3, m0, n0,
-                           warp >> 1, TILE, sm + S_HPC);
+      hidden_head<R_MT, R_NT, 1>(Split<RowsSwz<H>>(sm + S_H1C, TILE * H, m0), W2View(v2, n0),
+                                 H / 8, sm + S_B2, sm + S_W3, m0, n0, slot, TILE, sm + S_HPC);
     }
     __syncthreads();
     if (warp >= MMA_WARPS) {
       const int e = tid - MMA_THREADS;
       const float* hp = sm + S_HPC;
       if (e < nval) {
-        misc_out[((size_t)t * MISC + 8) * B + b0 + e] =
-            ((hp[e] + hp[TILE + e]) + hp[2 * TILE + e]) + hp[3 * TILE + e] + sm[S_B3];
+        float v = hp[e];
+        for (int w = 1; w < R_WN; ++w) v += hp[w * TILE + e];
+        misc_out[((size_t)t * MISC + 8) * B + b0 + e] = v + sm[S_B3];
       }
     }
   }
@@ -689,15 +724,12 @@ extern "C" {
 
 // Launches the rollout on `stream` and returns cudaGetLastError(): a launch
 // the card refuses (too much shared memory, bad configuration) never runs
-// and is reported only here. The 12 leaves come in `nn.Linear`'s layout.
-int rollout_fused(const float* s0, const float* noise, const float* pool,
-                  const float* w1, const float* b1, const float* w2, const float* b2,
-                  const float* w3, const float* b3, const float* v1, const float* c1,
-                  const float* v2, const float* c2, const float* v3, const float* c3,
+// and is reported only here. `pack` holds the actor's and the critic's
+// weight packs (2, PACK), zero-padded to this library's width.
+int rollout_fused(const float* s0, const float* noise, const float* pool, const float* pack,
                   float* obs, float* misc, float* s_final, int B, int T, int P,
                   const Consts* consts, float action_std, float lp_const, int device,
                   void* stream) {
-  const Weights W{w1, b1, w2, b2, w3, b3, v1, c1, v2, c2, v3, c3};
   // This library carries its own CUDA runtime, whose current device is not
   // the caller's: select the tensors' device before launching.
   cudaError_t err = cudaSetDevice(device);
@@ -708,12 +740,16 @@ int rollout_fused(const float* s0, const float* noise, const float* pool,
   if (err != cudaSuccess) return (int)err;
   const int blocks = (B + TILE - 1) / TILE;
   rollout_kernel<<<blocks, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-      s0, noise, pool, W, obs, misc, s_final, B, T, P, *consts, action_std, lp_const);
+      s0, noise, pool, pack, obs, misc, s_final, B, T, P, *consts, action_std, lp_const);
   return (int)cudaGetLastError();
 }
 
 // Dynamic shared memory of one CTA, in bytes.
 int rollout_fused_smem_bytes() { return SMEM_BYTES; }
+
+// This library's hidden width and the floats of one head's weight pack.
+int rollout_fused_width() { return H; }
+int rollout_fused_pack_floats() { return PACK; }
 
 const char* cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

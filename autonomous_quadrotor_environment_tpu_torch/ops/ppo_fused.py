@@ -16,7 +16,9 @@ fused branch is not taken. Over the minibatch formed by the row blocks
 
 On CUDA tensors each is one launch of a hand-written kernel in
 `csrc/ppo_fused.cu` (plus its fixed-order reduction pass, which carries the
-Adam step); on CPU tensors each is its plain version: `ppo_grad_plain`, the
+Adam step), built per instantiation (`ppo_fused_t.library`: hidden
+width, obs width, f32 or bf16 products); on CPU tensors each is its plain
+version: `ppo_grad_plain`, the
 rows gathered by block id and `torch.autograd` of `ppo_loss` on them, then
 for the Adam wrapper ``opt.step()``. `ppo_grad_adam_plain` is the Adam
 formula on copies of the state, the reference the card's kernel is held
@@ -38,23 +40,21 @@ import ctypes
 
 import torch
 
-from . import _build
 from .ppo_fused_t import (
     ACT,
     CHUNK,
-    HIDDEN,
-    OBS,
     _leaves,
     check_leaves,
     check_perm,
     grads_on_rows,
     launch_buffers,
+    load_lib,
     loss_and_metrics,
     loss_consts,
     raise_on_error,
     split_out,
 )
-from .rollout_fused import _check
+from .rollout_fused import _check, kernel_width
 
 
 def pack_aux(actions: torch.Tensor, old_logprobs: torch.Tensor, returns: torch.Tensor,
@@ -71,15 +71,15 @@ def pack_aux(actions: torch.Tensor, old_logprobs: torch.Tensor, returns: torch.T
 
 
 def supports(obs: torch.Tensor, leaves: list, tile: int) -> bool:
-    """What the kernels take: hidden 128, 75-dim obs, 4 actions, and any
-    tile that divides the rows. They compute in f32 under the fixed std they
-    are given (`agents.ppo.make_train_step` refuses bf16 products, and the
-    JAX gate sends a learned std to autograd)."""
+    """What the kernels take: a hidden width up to 256, any obs width (any
+    EnvConfig.hist_t * 15), 4 actions, and any tile that divides the rows.
+    They compute under the fixed std they are given (the JAX gate sends a
+    learned std to autograd), in f32 or bf16 products."""
     n, obs_dim = obs.shape
     return (
-        obs_dim == OBS
-        and len(leaves) == 12
-        and tuple(leaves[0].shape) == (HIDDEN, OBS)
+        len(leaves) == 12
+        and tuple(leaves[0].shape)[1] == obs_dim
+        and kernel_width(leaves[0].shape[0]) > 0
         and tuple(leaves[4].shape)[0] == ACT
         and tile > 0
         and n % tile == 0
@@ -93,15 +93,17 @@ def gather_rows(x: torch.Tensor, perm: torch.Tensor, tile: int) -> torch.Tensor:
 
 
 def ppo_grad_plain(model_or_leaves, obs, aux, perm, *, tile: int, action_std: float,
-                   clip_eps: float, entropy_coef: float):
+                   clip_eps: float, entropy_coef: float, compute_dtype: str = "f32"):
     """The plain PyTorch version of `fused_ppo_grad`: gather the minibatch's
-    rows and take `torch.autograd` of the port's `ppo_loss` on them. As for
+    rows and take `torch.autograd` of the port's `ppo_loss` on them, with
+    bf16 products under ``compute_dtype="bf16"`` (`grads_on_rows`). As for
     B2's plain version, it agrees with the kernel everywhere except at ratio
     == 1 +- clip_eps exactly (`torch.clamp`'s gradient is inclusive there).
     Returns ``(loss, metrics, grads)``."""
     return grads_on_rows(model_or_leaves, gather_rows(obs, perm, tile),
                          gather_rows(aux, perm, tile), action_std=action_std,
-                         clip_eps=clip_eps, entropy_coef=entropy_coef)
+                         clip_eps=clip_eps, entropy_coef=entropy_coef,
+                         compute_dtype=compute_dtype)
 
 
 def adam_plain(params, grads, exp_avg, exp_avg_sq, step: int, *, lr: float, b1: float,
@@ -121,15 +123,16 @@ def adam_plain(params, grads, exp_avg, exp_avg_sq, step: int, *, lr: float, b1: 
 
 def ppo_grad_adam_plain(model_or_leaves, exp_avg, exp_avg_sq, step: int, obs, aux, perm, *,
                         tile: int, action_std: float, clip_eps: float, entropy_coef: float,
-                        lr: float, b1: float, b2: float, eps: float = 1e-8):
+                        lr: float, b1: float, b2: float, eps: float = 1e-8,
+                        compute_dtype: str = "f32"):
     """The plain PyTorch version of `fused_ppo_grad_adam`, on copies of the
-    state: `ppo_grad_plain`, then `adam_plain` at step ``step + 1``. Returns
-    ``(loss, metrics, new_params, new_exp_avg, new_exp_avg_sq, step + 1)``,
-    the lists in leaf order."""
+    state: `ppo_grad_plain` (in ``compute_dtype``), then `adam_plain` (f32)
+    at step ``step + 1``. Returns ``(loss, metrics, new_params,
+    new_exp_avg, new_exp_avg_sq, step + 1)``, the lists in leaf order."""
     leaves = _leaves(model_or_leaves)
     loss, metrics, grads = ppo_grad_plain(
         model_or_leaves, obs, aux, perm, tile=tile, action_std=action_std,
-        clip_eps=clip_eps, entropy_coef=entropy_coef,
+        clip_eps=clip_eps, entropy_coef=entropy_coef, compute_dtype=compute_dtype,
     )
     params = [w.reshape(g.shape) for w, g in zip(leaves, grads)]
     new_p, new_m, new_v = adam_plain(params, grads, exp_avg, exp_avg_sq, step + 1,
@@ -176,47 +179,53 @@ def adam_state(opt: torch.optim.Adam, params: list[torch.Tensor]):
 
 def _check_rows(obs, aux, perm, tile, leaves):
     device = obs.device
-    n = obs.shape[0]
-    _check("obs", obs, (n, OBS), device)
+    if obs.dim() != 2:
+        raise ValueError(f"obs must be (n, obs_dim) rows, not {tuple(obs.shape)}")
+    n, obs_dim = obs.shape
+    _check("obs", obs, (n, obs_dim), device)
     _check("aux", aux, (n, 8), device)
     check_perm(perm, device)
-    check_leaves(leaves, device)
+    check_leaves(leaves, device, obs_dim)
     if not supports(obs, leaves, tile):
         raise ValueError(
-            "the ppo_fused kernels take hidden width 128, 75-dim obs, 4 actions and a "
-            f"tile dividing the rows; got obs {tuple(obs.shape)}, tile {tile}"
+            "the ppo_fused kernels take hidden widths up to 256, 4 actions and a tile "
+            "dividing the rows; got obs "
+            f"{tuple(obs.shape)}, tile {tile}"
         )
 
 
-def _launch(entry: str, leaves, obs, aux, perm, tile, action_std, clip_eps, extra=()):
+def _launch(entry: str, leaves, obs, aux, perm, tile, action_std, clip_eps, compute_dtype,
+            extra=()):
     """Launch ``entry`` (the gradient kernel and its reduction pass); its
     output is the flat gradients and metrics, or for the Adam entry, whose
     extra arguments are the 36 leaf pointers and the Adam constants, the
     three metrics alone."""
     device = obs.device
-    n = obs.shape[0]
+    n, obs_dim = obs.shape
+    hidden = leaves[0].shape[0]
     n_blocks = perm.shape[0]
     mb = n_blocks * tile
-    lib = _build.load("ppo_fused")
+    lib = load_lib("ppo_fused", hidden, obs_dim, compute_dtype)
     pack, ctas, work = launch_buffers(lib, leaves, device, -(-mb // CHUNK))
-    size = 3 if extra else lib.ppo_grad_out_floats()
+    size = 3 if extra else lib.ppo_grad_out_floats(hidden)
     out = torch.empty(size, dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(lib, entry)(
             obs.data_ptr(), aux.data_ptr(), perm.data_ptr(), pack.data_ptr(),
             work.data_ptr(), out.data_ptr(), n, tile, n_blocks, ctas,
-            *loss_consts(action_std, clip_eps, mb), *extra, device.index, stream,
+            *loss_consts(action_std, clip_eps, mb), hidden, *extra, device.index, stream,
         )
     raise_on_error(lib, err, entry)
     return out, mb
 
 
 def fused_ppo_grad(model_or_leaves, obs: torch.Tensor, aux: torch.Tensor, perm: torch.Tensor,
-                   *, tile: int, action_std: float, clip_eps: float, entropy_coef: float):
+                   *, tile: int, action_std: float, clip_eps: float, entropy_coef: float,
+                   compute_dtype: str = "f32"):
     """Loss, metrics and the 12 gradients of the minibatch of row blocks
     ``perm``: one kernel launch for CUDA tensors, the plain version for CPU
-    tensors.
+    tensors; products in ``compute_dtype`` (`PPOConfig.fused_compute`).
 
     ``model_or_leaves`` is an `ActorCritic` or its 12 leaves in flax leaf
     order. Returns ``(loss, metrics, grads)``: 0-dim tensors, metrics
@@ -226,27 +235,31 @@ def fused_ppo_grad(model_or_leaves, obs: torch.Tensor, aux: torch.Tensor, perm: 
     if obs.device.type == "cpu":
         return ppo_grad_plain(model_or_leaves, obs, aux, perm, tile=tile,
                               action_std=action_std, clip_eps=clip_eps,
-                              entropy_coef=entropy_coef)
+                              entropy_coef=entropy_coef, compute_dtype=compute_dtype)
     if obs.device.type != "cuda":
         raise ValueError(f"fused_ppo_grad runs on CUDA or CPU tensors, not {obs.device}")
     leaves = _leaves(model_or_leaves)
     _check_rows(obs, aux, perm, tile, leaves)
-    out, mb = _launch("ppo_fused", leaves, obs, aux, perm, tile, action_std, clip_eps)
+    out, mb = _launch("ppo_fused", leaves, obs, aux, perm, tile, action_std, clip_eps,
+                      compute_dtype)
     fused_ppo_grad.launches += 1
-    grads, actor_sum, critic_sum, rmax = split_out(out)
+    grads, actor_sum, critic_sum, rmax = split_out(out, leaves[0].shape[0], obs.shape[1])
     loss, metrics = loss_and_metrics(actor_sum, critic_sum, rmax, mb, action_std, entropy_coef)
     return loss, metrics, grads
 
 
 def fused_ppo_grad_adam(model, opt: torch.optim.Adam, obs: torch.Tensor, aux: torch.Tensor,
                         perm: torch.Tensor, *, tile: int, action_std: float, clip_eps: float,
-                        entropy_coef: float):
+                        entropy_coef: float, compute_dtype: str = "f32"):
     """One whole minibatch step: the loss, metrics and gradients of
-    `fused_ppo_grad`, then ``opt``'s Adam step on ``model``'s 12 leaves, in
-    place on the parameters and the optimizer's state. One kernel launch
-    for CUDA tensors; for CPU tensors `ppo_grad_plain` and ``opt.step()``,
-    which leaves no ``.grad`` behind. ``opt`` must pass
-    `adam_takes`. Returns ``(loss, metrics)``.
+    `fused_ppo_grad` (products in ``compute_dtype``), then ``opt``'s Adam
+    step (f32) on ``model``'s 12 leaves, in place on the parameters and the
+    optimizer's state. One kernel launch for CUDA tensors, whatever the
+    model's width: the kernel runs on the zero-padded pack and its
+    reduction steps the model's own leaves, so nothing is copied in or out;
+    for CPU tensors `ppo_grad_plain` and ``opt.step()``, which leaves no
+    ``.grad`` behind. ``opt`` must pass `adam_takes`. Returns ``(loss,
+    metrics)``.
     `fused_ppo_grad_adam.launches` counts the kernel launches."""
     if not adam_takes(opt, model):
         raise ValueError("fused_ppo_grad_adam steps a plain torch.optim.Adam over the "
@@ -257,7 +270,7 @@ def fused_ppo_grad_adam(model, opt: torch.optim.Adam, obs: torch.Tensor, aux: to
     if obs.device.type == "cpu":
         loss, metrics, grads = ppo_grad_plain(
             model, obs, aux, perm, tile=tile, action_std=action_std, clip_eps=clip_eps,
-            entropy_coef=entropy_coef,
+            entropy_coef=entropy_coef, compute_dtype=compute_dtype,
         )
         for p, g in zip(params, grads):
             p.grad = g
@@ -276,7 +289,7 @@ def fused_ppo_grad_adam(model, opt: torch.optim.Adam, obs: torch.Tensor, aux: to
     t = step + 1
     ptrs = (ctypes.c_void_p * 36)(*[x.data_ptr() for x in params + exp_avg + exp_avg_sq])
     out, mb = _launch(
-        "ppo_fused_adam", leaves, obs, aux, perm, tile, action_std, clip_eps,
+        "ppo_fused_adam", leaves, obs, aux, perm, tile, action_std, clip_eps, compute_dtype,
         extra=(ptrs, 1.0 - b1, b2, 1.0 - b2, -lr / (1.0 - b1 ** t),
                (1.0 - b2 ** t) ** 0.5, eps),
     )

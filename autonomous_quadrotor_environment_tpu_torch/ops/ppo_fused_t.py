@@ -6,13 +6,17 @@ kernel's (T, features, B) output, the clipped-surrogate + value loss of
 `agents.ppo.ppo_loss` and the gradients of all 12 ActorCritic leaves:
 
 * on CUDA tensors, as one launch of the hand-written kernel in
-  `csrc/ppo_fused_t.cu` (plus its fixed-order reduction pass);
+  `csrc/ppo_fused_t.cu` (plus its fixed-order reduction pass), built per
+  instantiation (`library`: a hidden width of 32, 64, 128 or 256 that a
+  narrower model runs zero-padded on, the obs width, f32 or bf16
+  products; the rest of the layout the header derives);
 * on CPU tensors, as `ppo_grad_t_plain`: the rows gathered by block id and
   `torch.autograd` of `ppo_loss` on them, which is also the reference the
   kernel is held against on the card.
 
-A block is ``tile`` consecutive envs at one timestep; block id p is
-timestep ``p // (B // tile)`` and envs ``(p % (B // tile)) * tile`` onward.
+A block is ``tile`` consecutive envs at one timestep (any tile that divides
+B); block id p is timestep ``p // (B // tile)`` and envs ``(p % (B //
+tile)) * tile`` onward.
 aux rows are [action(4), old logprob sum, return, advantage, 0].
 
 Gradients come back in `nn.Linear`'s own layout, kernels (out, in) and
@@ -29,26 +33,27 @@ import math
 import torch
 
 from . import _build
-from .rollout_fused import _check, transpose_leaves
+from .rollout_fused import (
+    ACT,
+    OBS,
+    _check,
+    kernel_width,
+    transpose_leaves,
+    weight_pack,
+)
 
-OBS = 75
-HIDDEN = 128  # the one hidden width the kernel is built for
-ACT = 4
-TILE_STEP = 32  # a tile must be a multiple: the kernel loads 32-env halves of a chunk
 CHUNK = 64      # rows per chunk in the gradient kernels
+COMPUTE = ("f32", "bf16")
+# The library's `ppo_grad_config` entries, in order.
+CONFIG = ("H", "OBS", "BF16", "K1", "NS", "resident", "smem_bytes", "wide")
 _LOG_2PI = math.log(2.0 * math.pi)
 
-# One head's weight pack (floats), as `csrc/ppo_grad.cuh` declares it (P_*):
-# W1 (out, in) with its inputs padded to K1 = 80, W2 (out, in), W3 padded
-# to ACT rows, b1, b2, b3 padded to ACT.
-K1 = 80
-P_W1 = 0
-P_W2 = P_W1 + HIDDEN * K1
-P_W3 = P_W2 + HIDDEN * HIDDEN
-P_B1 = P_W3 + ACT * HIDDEN
-P_B2 = P_B1 + HIDDEN
-P_B3 = P_B2 + HIDDEN
-PACK = P_B3 + ACT
+
+def kernel_depth(hidden: int, obs: int) -> int:
+    """The input depth K1 of the weight pack's W1 (`csrc/ppo_grad.cuh`):
+    ``obs`` padded to 16, or to 32 at the 32-wide instantiation."""
+    quantum = 32 if kernel_width(hidden) == 32 else 16
+    return -(-obs // quantum) * quantum
 
 
 def entropy_const(action_std: float) -> float:
@@ -57,18 +62,17 @@ def entropy_const(action_std: float) -> float:
 
 
 def supports(obs_t: torch.Tensor, leaves: list, tile: int) -> bool:
-    """What the kernel takes: hidden 128, 75-dim obs, 4 actions, and env
-    tiles that divide B and are a multiple of 32. It computes in f32 under
-    the fixed std it is given (`agents.ppo.make_train_step` refuses a
-    learned std and bf16 products)."""
+    """What the kernel takes: a hidden width up to 256, any obs width, 4
+    actions, and env tiles that divide B. It computes under the fixed std
+    it is given (the JAX gate sends a learned std to autograd), in f32 or
+    bf16 products."""
     _, obs_dim, b = obs_t.shape
     return (
-        obs_dim == OBS
-        and len(leaves) == 12
-        and tuple(leaves[0].shape) == (HIDDEN, OBS)
+        len(leaves) == 12
+        and tuple(leaves[0].shape)[1] == obs_dim
         and tuple(leaves[4].shape)[0] == ACT
+        and kernel_width(leaves[0].shape[0]) > 0
         and tile > 0
-        and tile % TILE_STEP == 0
         and b % tile == 0
     )
 
@@ -90,10 +94,12 @@ def _gather_rows(x_t: torch.Tensor, perm: torch.Tensor, tile: int) -> torch.Tens
 
 
 def ppo_grad_t_plain(model_or_leaves, obs_t, aux_t, perm, *, tile: int,
-                     action_std: float, clip_eps: float, entropy_coef: float):
+                     action_std: float, clip_eps: float, entropy_coef: float,
+                     compute_dtype: str = "f32"):
     """The plain PyTorch version: gather the minibatch's rows by block id and
-    take `torch.autograd` of the port's `ppo_loss` on them. The mean over
-    the rows scales the gradients by 1/mb, as the kernel does.
+    take `torch.autograd` of the port's `ppo_loss` on them (with bf16
+    products under ``compute_dtype="bf16"``, see `grads_on_rows`). The mean
+    over the rows scales the gradients by 1/mb, as the kernel does.
 
     It is an independent check of the kernel's hand-derived backward, and
     agrees with it everywhere except at ratio == 1 +- clip_eps exactly:
@@ -103,66 +109,149 @@ def ppo_grad_t_plain(model_or_leaves, obs_t, aux_t, perm, *, tile: int,
     Returns ``(loss, metrics, grads)`` like `fused_ppo_grad_t`."""
     return grads_on_rows(model_or_leaves, _gather_rows(obs_t, perm, tile),
                          _gather_rows(aux_t, perm, tile), action_std=action_std,
-                         clip_eps=clip_eps, entropy_coef=entropy_coef)
+                         clip_eps=clip_eps, entropy_coef=entropy_coef,
+                         compute_dtype=compute_dtype)
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 to nearest even, as f32 (JAX's astype(bfloat16))."""
+    return x.to(torch.bfloat16).float()
+
+
+class _Bf16Linear(torch.autograd.Function):
+    """x W^T + b with every product on operands rounded to bf16 and summed in
+    f32, the backward's too, as the JAX kernels form them (`_make_dots`):
+    the output bf16(x) bf16(W)^T, the data gradient bf16(g) bf16(W), the
+    weight gradient bf16(g)^T bf16(x); the bias and its gradient in f32. The
+    rounded operands are multiplied as f32 tensors, so no product's result
+    is rounded (a product of two bf16 values is exact in f32)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        xr, wr = _bf16(x), _bf16(w)
+        ctx.save_for_backward(xr, wr)
+        return xr @ wr.T + b
+
+    @staticmethod
+    def backward(ctx, g):
+        xr, wr = ctx.saved_tensors
+        gr = _bf16(g)
+        return gr @ wr, gr.T @ xr, g.sum(0)
+
+
+class _Bf16Forward:
+    """``model``'s forward with bf16 products (`_Bf16Linear`), the tanh in
+    f32: what `ppo_loss` calls as its model under ``compute_dtype="bf16"``."""
+
+    def __init__(self, model):
+        self.model = model
+
+    def __call__(self, obs):
+        a1, a2, a3, c1, c2, c3 = self.model.linears()
+
+        def lin(layer, x):
+            return _Bf16Linear.apply(x, layer.weight, layer.bias)
+
+        mean = torch.tanh(lin(a3, torch.tanh(lin(a2, torch.tanh(lin(a1, obs))))))
+        value = lin(c3, torch.tanh(lin(c2, torch.tanh(lin(c1, obs))))).squeeze(-1)
+        if self.model.learn_std:
+            return mean, value, self.model.log_std
+        return mean, value, torch.tensor(math.log(self.model.action_std), dtype=torch.float32,
+                                         device=obs.device)
 
 
 def grads_on_rows(model_or_leaves, obs, aux, *, action_std: float, clip_eps: float,
-                  entropy_coef: float):
+                  entropy_coef: float, compute_dtype: str = "f32"):
     """`torch.autograd` of the port's `ppo_loss` on gathered rows, obs
-    (mb, 75) and aux (mb, 8): the plain versions' arithmetic. Returns
-    ``(loss, metrics, grads)``, detached, the gradients in leaf order."""
+    (mb, obs_dim) and aux (mb, 8): the plain versions' arithmetic. Under
+    ``compute_dtype="bf16"`` every product of the forward and the backward
+    takes operands rounded to bf16 and sums in f32 (`_Bf16Linear`); the
+    tanh, the loss and the bias gradients stay f32. Returns ``(loss,
+    metrics, grads)``, detached, the gradients in leaf order."""
     from ..agents.networks import ActorCritic
     from ..agents.ppo import ppo_loss
     from ..config import PPOConfig
 
+    if compute_dtype not in COMPUTE:
+        raise ValueError(f"compute_dtype must be one of {COMPUTE}, not {compute_dtype!r}")
     if isinstance(model_or_leaves, (list, tuple)):
         model = ActorCritic.from_leaves(model_or_leaves, action_std)
     else:
         model = model_or_leaves
     cfg = PPOConfig(clip_eps=clip_eps, entropy_coef=entropy_coef, action_std=action_std)
     params = [p for layer in model.linears() for p in (layer.weight, layer.bias)]
+    forward = _Bf16Forward(model) if compute_dtype == "bf16" else model
     with torch.enable_grad():
         loss, metrics = ppo_loss(
-            model, obs, aux[:, 0:4], aux[:, 4:5], aux[:, 5], aux[:, 6], cfg
+            forward, obs, aux[:, 0:4], aux[:, 4:5], aux[:, 5], aux[:, 6], cfg
         )
         grads = torch.autograd.grad(loss, params)
     metrics = {k: v.detach() for k, v in metrics.items()}
     return loss.detach(), metrics, list(grads)
 
 
-def _leaf_shapes(hidden: int, n_act: int = ACT) -> list[tuple]:
+def _leaf_shapes(hidden: int, n_act: int = ACT, obs: int = OBS) -> list[tuple]:
     return [
-        (hidden, OBS), (hidden,), (hidden, hidden), (hidden,), (n_act, hidden), (n_act,),
-        (hidden, OBS), (hidden,), (hidden, hidden), (hidden,), (1, hidden), (1,),
+        (hidden, obs), (hidden,), (hidden, hidden), (hidden,), (n_act, hidden), (n_act,),
+        (hidden, obs), (hidden,), (hidden, hidden), (hidden,), (1, hidden), (1,),
     ]
 
 
 def _pack(leaves: list[torch.Tensor]) -> torch.Tensor:
-    """The kernels' (2, PACK) weights at the offsets P_*: per head W1 with
-    its inputs padded to K1, W2, W3 padded to ACT rows, b1, b2, b3 padded."""
-    pack = torch.zeros(2, PACK, dtype=torch.float32, device=leaves[0].device)
-    for head, (w1, b1, w2, b2, w3, b3) in enumerate((leaves[:6], leaves[6:])):
-        p = pack[head]
-        p[P_W1:P_W2].view(HIDDEN, K1)[:, :OBS] = w1
-        p[P_W2:P_W3] = w2.reshape(-1)
-        p[P_W3:P_W3 + w3.numel()] = w3.reshape(-1)
-        p[P_B1:P_B2] = b1.reshape(-1)
-        p[P_B2:P_B3] = b2.reshape(-1)
-        p[P_B3:P_B3 + b3.numel()] = b3.reshape(-1)
-    return pack
+    """The kernels' (2, PACK) weights for these leaves at their
+    instantiation: per head W1 zero-padded to (H, K1), W2 to (H, H), W3 to
+    (ACT, H), b1, b2, b3 padded (`rollout_fused.weight_pack`)."""
+    hidden, obs = leaves[0].shape
+    return weight_pack(leaves, kernel_width(hidden), kernel_depth(hidden, obs))
 
 
-def check_leaves(leaves: list, device: torch.device) -> None:
-    """Raise unless ``leaves`` are the 12 float32 hidden-128 leaves on
-    ``device`` that the gradient kernels take."""
+def check_leaves(leaves: list, device: torch.device, obs: int) -> None:
+    """Raise unless ``leaves`` are 12 float32 leaves on ``device`` of one
+    width that the gradient kernels take, with ``obs`` inputs."""
     if len(leaves) != 12:
         raise ValueError("want the 12 ActorCritic leaves in flax leaf order")
-    for i, (w, shape) in enumerate(zip(leaves, _leaf_shapes(HIDDEN))):
+    hidden = leaves[0].shape[0]
+    if not kernel_width(hidden):
+        raise ValueError(
+            f"the gradient kernels take hidden widths up to 256, not {hidden} "
+            "(ROADMAP B, hidden widths above 256)"
+        )
+    for i, (w, shape) in enumerate(zip(leaves, _leaf_shapes(hidden, obs=obs))):
         if w.device != device or w.dtype != torch.float32 or w.numel() != math.prod(shape):
             raise ValueError(
-                f"leaf {i}: the kernel takes hidden width {HIDDEN}: want float32 "
-                f"{shape} on {device}, got {w.dtype} {tuple(w.shape)} on {w.device}"
+                f"leaf {i}: want float32 {shape} on {device}, "
+                f"got {w.dtype} {tuple(w.shape)} on {w.device}"
             )
+
+
+def library(hidden: int, obs: int, compute_dtype: str) -> tuple:
+    """The build's defines (`_build.build`) of the gradient libraries that a
+    model of ``hidden`` units with ``obs`` inputs runs on in
+    ``compute_dtype``."""
+    if compute_dtype not in COMPUTE:
+        raise ValueError(f"compute_dtype must be one of {COMPUTE}, not {compute_dtype!r}")
+    return (("BF16", int(compute_dtype == "bf16")), ("H", kernel_width(hidden)), ("OBS", obs))
+
+
+def load_lib(name: str, hidden: int, obs: int, compute_dtype: str):
+    """The library of gradient kernel source ``name`` at the instantiation
+    for this width, obs width and precision, its width and depth checked
+    against the weight pack's."""
+    defines = library(hidden, obs, compute_dtype)
+    lib = _build.load(name, defines)
+    got = [lib.ppo_grad_config(i) for i in range(4)]
+    want = [kernel_width(hidden), obs, defines[0][1], kernel_depth(hidden, obs)]
+    if got != want:
+        raise RuntimeError(f"the {name} library's instantiation {got} is not the wrapper's {want}")
+    return lib
+
+
+def instantiation(lib) -> dict:
+    """A gradient library's instantiation as its header derived it
+    (`ppo_grad_config`): width, obs, bf16, depth K1, weight-gradient slices
+    NS, whether W1 and W2 sit in shared memory, its shared memory in bytes,
+    and whether the obs are too wide to stage (``wide``)."""
+    return {k: lib.ppo_grad_config(i) for i, k in enumerate(CONFIG)}
 
 
 def check_perm(perm: torch.Tensor, device: torch.device) -> None:
@@ -173,13 +262,14 @@ def check_perm(perm: torch.Tensor, device: torch.device) -> None:
 
 def launch_buffers(lib, leaves: list, device: torch.device, n_chunks: int):
     """What a gradient launch needs beside its inputs: the (2, PACK) weight
-    pack, the CTAs per head (about half the SMs, at most one per chunk) and
-    their (2, G, partial) workspace."""
+    pack, the chunk walkers per head G (at most one per chunk; with the NS
+    slice CTAs of each walk, the 2 G NS CTAs about fill the SMs) and their
+    (2, G, partial) workspace."""
     pack = _pack(leaves)
     if pack.shape[1] != lib.ppo_grad_pack_floats():
         raise RuntimeError("weight pack size disagrees with the kernel's")
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    ctas = max(1, min(sms // 2, n_chunks))
+    ctas = max(1, min(sms // (2 * lib.ppo_grad_config(4)), n_chunks))
     work = torch.empty(2 * ctas * lib.ppo_grad_partial_floats(), dtype=torch.float32,
                        device=device)
     return pack, ctas, work
@@ -199,12 +289,12 @@ def raise_on_error(lib, err: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: error {err} ({msg})")
 
 
-def split_out(out: torch.Tensor):
-    """The kernels' flat output -> the 12 gradients (views, leaf order,
-    kernels (out, in), biases (out,)) and the actor sum, critic sum and
-    ratio max."""
+def split_out(out: torch.Tensor, hidden: int = 128, obs: int = OBS):
+    """The kernels' flat output at the model's width -> the 12 gradients
+    (views, leaf order, kernels (out, in), biases (out,)) and the actor sum,
+    critic sum and ratio max."""
     grads, off = [], 0
-    for shape in _leaf_shapes(HIDDEN):
+    for shape in _leaf_shapes(hidden, obs=obs):
         size = math.prod(shape)
         grads.append(out[off:off + size].view(shape))
         off += size
@@ -226,38 +316,40 @@ def loss_and_metrics(actor_sum, critic_sum, rmax, mb: int, action_std: float,
     return loss, metrics
 
 
-def _launch(leaves, obs_t, aux_t, perm, tile, action_std, clip_eps):
+def _launch(leaves, obs_t, aux_t, perm, tile, action_std, clip_eps, compute_dtype):
     device = obs_t.device
-    steps, _, b = obs_t.shape
-    _check("obs_t", obs_t, (steps, OBS, b), device)
+    steps, obs_dim, b = obs_t.shape
+    _check("obs_t", obs_t, (steps, obs_dim, b), device)
     _check("aux_t", aux_t, (steps, 8, b), device)
     check_perm(perm, device)
-    check_leaves(leaves, device)
+    check_leaves(leaves, device, obs_dim)
+    hidden = leaves[0].shape[0]
     n_blocks = perm.shape[0]
     mb = n_blocks * tile
-    lib = _build.load("ppo_fused_t")
+    lib = load_lib("ppo_fused_t", hidden, obs_dim, compute_dtype)
     pack, ctas, work = launch_buffers(lib, leaves, device, -(-mb // CHUNK))
-    out = torch.empty(lib.ppo_grad_out_floats(), dtype=torch.float32, device=device)
+    out = torch.empty(lib.ppo_grad_out_floats(hidden), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.ppo_fused_t(
             obs_t.data_ptr(), aux_t.data_ptr(), perm.data_ptr(), pack.data_ptr(),
             work.data_ptr(), out.data_ptr(),
-            steps, b, tile, n_blocks, ctas, *loss_consts(action_std, clip_eps, mb),
+            steps, b, tile, n_blocks, ctas, *loss_consts(action_std, clip_eps, mb), hidden,
             device.index, stream,
         )
     raise_on_error(lib, err, "ppo_fused_t")
     fused_ppo_grad_t.launches += 1
-    grads, actor_sum, critic_sum, rmax = split_out(out)
+    grads, actor_sum, critic_sum, rmax = split_out(out, hidden, obs_dim)
     return actor_sum, critic_sum, rmax, mb, grads
 
 
 def fused_ppo_grad_t(model_or_leaves, obs_t: torch.Tensor, aux_t: torch.Tensor,
                      perm: torch.Tensor, *, tile: int, action_std: float,
-                     clip_eps: float, entropy_coef: float):
+                     clip_eps: float, entropy_coef: float, compute_dtype: str = "f32"):
     """Loss, metrics and the 12 gradients of one minibatch given as block
     ids: one kernel launch for CUDA tensors, the plain version for CPU
-    tensors.
+    tensors. ``compute_dtype`` is the products' precision,
+    `PPOConfig.fused_compute`: "f32" (3xTF32 on the card) or "bf16".
 
     ``model_or_leaves`` is an `ActorCritic` or its 12 leaves in flax leaf
     order (kernels (out, in), biases (out, 1) or (out,)). Returns ``(loss,
@@ -268,19 +360,19 @@ def fused_ppo_grad_t(model_or_leaves, obs_t: torch.Tensor, aux_t: torch.Tensor,
     if obs_t.device.type == "cpu":
         return ppo_grad_t_plain(
             model_or_leaves, obs_t, aux_t, perm, tile=tile, action_std=action_std,
-            clip_eps=clip_eps, entropy_coef=entropy_coef,
+            clip_eps=clip_eps, entropy_coef=entropy_coef, compute_dtype=compute_dtype,
         )
     if obs_t.device.type != "cuda":
         raise ValueError(f"fused_ppo_grad_t runs on CUDA or CPU tensors, not {obs_t.device}")
     leaves = _leaves(model_or_leaves)
     if not supports(obs_t, leaves, tile):
         raise ValueError(
-            "the ppo_fused_t kernel takes hidden width 128, 75-dim obs, 4 actions "
-            f"and a tile that is a multiple of {TILE_STEP} dividing B; got leaves "
+            "the ppo_fused_t kernel takes hidden widths up to 256, 4 actions and a tile "
+            "dividing B; got leaves "
             f"{[tuple(l.shape) for l in leaves[:1]]}, obs {tuple(obs_t.shape)}, tile {tile}"
         )
     actor_sum, critic_sum, rmax, mb, grads = _launch(
-        leaves, obs_t, aux_t, perm, tile, action_std, clip_eps
+        leaves, obs_t, aux_t, perm, tile, action_std, clip_eps, compute_dtype
     )
     loss, metrics = loss_and_metrics(actor_sum, critic_sum, rmax, mb, action_std, entropy_coef)
     return loss, metrics, grads

@@ -8,7 +8,10 @@ auto-reset -- for B envs over T steps:
 * on CUDA tensors, as one launch of the hand-written kernel in
   `csrc/rollout_fused.cu`, which keeps each env's packed state on chip for
   all T steps, runs the actor's products on the tensor cores in 3xTF32
-  inside the loop and the critic over the stored observations after it;
+  inside the loop and the critic over the stored observations after it.
+  The kernel is built per hidden width in `WIDTHS`; a model of any width
+  up to 256 runs on the next one up, its weights zero-padded
+  (`weight_pack`), which changes no output;
 * on CPU tensors, as `rollout_plain`, a Python loop of exactly the per-step
   body below (the counterpart of the JAX package's `rollout_twin`), which
   is also the reference the kernel is held against on the card.
@@ -42,7 +45,8 @@ from . import _build
 ROWS = 128
 OBS = 75
 MISC = 16
-HIDDEN = 128  # the one hidden width the kernel is built for
+WIDTHS = (32, 64, 128, 256)  # the hidden widths the kernels are built for
+ACT = 4
 _LOG_2PI = math.log(2.0 * math.pi)
 
 # Row offsets in the packed state (see module docstring).
@@ -565,6 +569,55 @@ def _leaf_shapes(hidden: int) -> list[tuple]:
     ]
 
 
+def kernel_width(hidden: int) -> int:
+    """The instantiated width a model of ``hidden`` units runs on: the
+    smallest of `WIDTHS` that holds it; 0 above 256 (ROADMAP B, hidden widths
+    above 256)."""
+    return next((w for w in WIDTHS if hidden <= w), 0)
+
+
+def library(hidden: int) -> tuple:
+    """The build's defines (`_build.build`) of the rollout library that a
+    model of ``hidden`` units runs on."""
+    return (("H", kernel_width(hidden)),)
+
+
+def pack_offsets(width: int, k1: int) -> dict:
+    """Offsets (floats) in one head's weight pack at instantiated width
+    ``width`` and input depth ``k1``, as the kernels declare them (P_*)."""
+    o = {"P_W1": 0}
+    o["P_W2"] = o["P_W1"] + width * k1
+    o["P_W3"] = o["P_W2"] + width * width
+    o["P_B1"] = o["P_W3"] + ACT * width
+    o["P_B2"] = o["P_B1"] + width
+    o["P_B3"] = o["P_B2"] + width
+    o["PACK"] = o["P_B3"] + ACT
+    return o
+
+
+def weight_pack(leaves: list, width: int, k1: int) -> torch.Tensor:
+    """The kernels' (2, PACK) weights: per head W1 (out, in) zero-padded to
+    (width, k1), W2 to (width, width), W3 to (4, width), b1, b2 to width, b3
+    to 4. ``leaves`` are the 12 ActorCritic leaves in flax leaf order,
+    kernels (out, in), biases (out,) or (out, 1), of any width <= ``width``
+    and obs width <= ``k1``. The padded units have zero weights in and out
+    and a zero bias: their activations are tanh(0) = 0 and they add exact
+    zeros to every sum, so the pack computes what the leaves compute."""
+    o = pack_offsets(width, k1)
+    pack = torch.zeros(2, o["PACK"], dtype=torch.float32, device=leaves[0].device)
+    for head, (w1, b1, w2, b2, w3, b3) in enumerate((leaves[:6], leaves[6:])):
+        p = pack[head]
+        h, obs = w1.shape
+        n_out = w3.shape[0]
+        p[o["P_W1"]:o["P_W2"]].view(width, k1)[:h, :obs] = w1
+        p[o["P_W2"]:o["P_W3"]].view(width, width)[:h, :h] = w2
+        p[o["P_W3"]:o["P_B1"]].view(ACT, width)[:n_out, :h] = w3
+        p[o["P_B1"]:o["P_B1"] + h] = b1.reshape(-1)
+        p[o["P_B2"]:o["P_B2"] + h] = b2.reshape(-1)
+        p[o["P_B3"]:o["P_B3"] + n_out] = b3.reshape(-1)
+    return pack
+
+
 def _check(name, t, shape, device, dtype=torch.float32):
     if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape):
         raise ValueError(
@@ -586,25 +639,30 @@ def _launch(s0, noise, pool, wT, C, action_std):
     _check("pool", pool, (p_size, ROWS, b), device)
     if len(wT) != 12:
         raise ValueError("wT must hold the 12 transposed ActorCritic leaves")
-    for i, (w, shape) in enumerate(zip(wT, _leaf_shapes(HIDDEN))):
+    hidden = wT[0].shape[0]
+    width = kernel_width(hidden)
+    if not width:
+        raise ValueError(f"the rollout kernel takes hidden widths up to {WIDTHS[-1]}, not "
+                         f"{hidden} (ROADMAP B, hidden widths above 256)")
+    for i, (w, shape) in enumerate(zip(wT, _leaf_shapes(hidden))):
         if w.device != device or w.dtype != torch.float32 or tuple(w.shape) != shape:
             raise ValueError(
-                f"leaf {i}: the kernel takes hidden width {HIDDEN}: want float32 "
-                f"{shape} on {device}, got {w.dtype} {tuple(w.shape)} on {w.device}"
+                f"leaf {i}: want float32 {shape} on {device}, "
+                f"got {w.dtype} {tuple(w.shape)} on {w.device}"
             )
-    # The kernel reads the leaves in `nn.Linear`'s (out, in) layout, as given.
-    leaves = [w.contiguous() for w in wT]
+    lib = _build.load("rollout_fused", library(hidden))
+    pack = weight_pack(wT, width, 80)
+    if pack.shape[1] != lib.rollout_fused_pack_floats():
+        raise RuntimeError("weight pack size disagrees with the kernel's")
 
     obs = torch.empty(steps, OBS, b, dtype=torch.float32, device=device)
     misc = torch.empty(steps, MISC, b, dtype=torch.float32, device=device)
     s_final = torch.empty(ROWS, b, dtype=torch.float32, device=device)
     consts = _consts(C)
-    lib = _build.load("rollout_fused")
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.rollout_fused(
-            s0.data_ptr(), noise.data_ptr(), pool.data_ptr(),
-            *[w.data_ptr() for w in leaves],
+            s0.data_ptr(), noise.data_ptr(), pool.data_ptr(), pack.data_ptr(),
             obs.data_ptr(), misc.data_ptr(), s_final.data_ptr(),
             b, steps, p_size, ctypes.addressof(consts),
             action_std, math.log(action_std) + 0.5 * _LOG_2PI,

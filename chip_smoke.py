@@ -9,8 +9,10 @@ It imports nothing of JAX. Each phase prints one flushed JSON line:
 
 1. build: nvcc builds the four kernel sources, `ops/csrc/rollout_fused.cu`,
    `ops/csrc/ppo_fused_t.cu`, `ops/csrc/ppo_fused.cu` and
-   `ops/csrc/render_nadir.cu`, in parallel; ptxas's registers and spills,
-   and each library's shared memory.
+   `ops/csrc/render_nadir.cu`, at every instantiation the phases run
+   (`LIBRARIES`: hidden width, obs width, f32 or bf16 products), all in
+   parallel; ptxas's registers and spills, and each library's shared
+   memory.
 2. kernel_vs_plain: the rollout kernel against its plain PyTorch version on
    the same CUDA tensors (B=1024, T=32, P=4, seeded weights and noise), at
    the default bounding box and at bb_scale=0.15, where resets and pool
@@ -172,6 +174,20 @@ It imports nothing of JAX. Each phase prints one flushed JSON line:
    `size_sweep`, --stacked and serial; the seed-parallel loop over the dp
    world with the collectives patched to raise.
 
+30. kernel_options (run after learn_rowmajor): the kernels' options beyond
+   the trainer's defaults. B1 at hidden 32, 64 and 256 against its plain
+   version (B=1024, T=32, P=4, both bounding boxes, 1e-4); B2 at tiles 8,
+   24 and 18 (4-byte copies) and at hidden 32 and 256, B3 and B4 at obs 60
+   and hidden 256, each at the old gates, and B2, B3 and B4 with bf16
+   products against the bf16 plain versions (leaves within 1e-3 relative
+   Frobenius, B4's sign flips counted as adam_compare counts them), with
+   each one's times and bounds; a warm fully fused train step at bench.py's
+   shape at hidden 64 and 256 and in bf16 (1 B1 and 40 B2 launches a step),
+   its ms and each kernel's time and bounds; counted row-major steps at the
+   trainer's envs with 16-step rollouts (obs 60 with B3 and B4, hidden 256
+   and bf16 with B4, bf16 with B3); and learn_bf16, the learn phase with
+   fused_compute="bf16" to the same bar by update 600.
+
 The step loops of the trainer's rollout (`rollout_batch`), its eval
 (`_fly`), the landing interval and the classical, mission (the hybrid one
 too), live-mission and step-response runners replay CUDA graphs on the
@@ -234,6 +250,7 @@ from autonomous_quadrotor_environment_tpu_torch.utils import graphs
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_F32_FLOPS = 67e12    # f32 on the CUDA cores
 PEAK_TF32_FLOPS = 495e12  # TF32 on the tensor cores
+PEAK_BF16_FLOPS = 989e12  # bf16 on the tensor cores
 PEAK_HBM_BYTES = 3.35e12  # device memory
 
 DEVICE = "cuda"
@@ -258,7 +275,24 @@ RENDER_BATCHES = (100, 4096)  # the eval's batch, and a large one
 # waves, 7 for the checker value, 2+24 for the board and border masks, 12
 # for the ground wave, 4 for the board color, 3x9 for the channels.
 RENDER_OPS_PER_PIXEL = 128
-LIBRARIES = ("rollout_fused", "ppo_fused_t", "ppo_fused", "render_nadir")  # one nvcc each
+# One nvcc per source and instantiation, all started together: the
+# trainer's (hidden 128, obs 75, f32), then those of the kernel_options
+# phase (B1 at widths 32, 64 and 256; B2 at 32, 64, 256, in bf16 and with
+# the wide obs 180 at 256; B3/B4 at 32, at obs 60, at 256, in bf16 and with
+# the wide obs 180 at 256 and 300 at 128).
+LIBRARIES = (
+    ("rollout_fused", rf.library(128)), ("ppo_fused_t", pf.library(128, 75, "f32")),
+    ("ppo_fused", pf.library(128, 75, "f32")), ("render_nadir", ()),
+    ("rollout_fused", rf.library(32)), ("rollout_fused", rf.library(64)),
+    ("rollout_fused", rf.library(256)),
+    ("ppo_fused_t", pf.library(32, 75, "f32")), ("ppo_fused_t", pf.library(64, 75, "f32")),
+    ("ppo_fused_t", pf.library(256, 75, "f32")), ("ppo_fused_t", pf.library(128, 75, "bf16")),
+    ("ppo_fused_t", pf.library(256, 180, "f32")),
+    ("ppo_fused", pf.library(32, 75, "f32")),
+    ("ppo_fused", pf.library(128, 60, "f32")), ("ppo_fused", pf.library(256, 75, "f32")),
+    ("ppo_fused", pf.library(128, 75, "bf16")), ("ppo_fused", pf.library(256, 180, "f32")),
+    ("ppo_fused", pf.library(128, 300, "f32")),
+)
 _CSRC = "autonomous_quadrotor_environment_tpu_torch/ops/csrc/"
 _TPU = "autonomous_quadrotor_environment_tpu/ops/"
 KERNELS = {
@@ -300,7 +334,7 @@ def sync() -> None:
 # ---------------------------------------------------------------------------
 
 
-def compare(kernel_out, plain_out, atol: float, rtol: float) -> dict:
+def compare(kernel_out, plain_out, atol: float, rtol: float, rate_atol: float = 0.0) -> dict:
     """Hold the kernel's (s_final, obs, misc) against the plain version's,
     entry by entry within ``atol + rtol * |plain|``.
 
@@ -317,7 +351,13 @@ def compare(kernel_out, plain_out, atol: float, rtol: float) -> dict:
       dynamics. So the reward and that row may differ beyond the tolerance
       in at most 1e-4 of their entries; every other output in none.
     ``max_abs_err`` is over the entries within tolerance; the flips are
-    counted apart."""
+    counted apart.
+
+    ``rate_atol`` (0 unless given) adds to ``atol`` on the Euler-rate rows
+    of the state (105-107), with no entry let beyond: a rate is (ang -
+    prev_ang) / dt, so the angles' last-bit differences (the kernel's
+    atan2f and asinf against torch's, each angle an f32 in [-pi, pi]) show
+    there 1 / dt = 100x larger. The kernel_options phase gives RATE_ATOL."""
     ks, ko, km = kernel_out
     ps, po, pm = plain_out
     for name, t in (("s_final", ks), ("obs", ko), ("misc", km)):
@@ -335,20 +375,24 @@ def compare(kernel_out, plain_out, atol: float, rtol: float) -> dict:
         raise AssertionError(f"done histories agree on {env_agree:.4f} of envs < 0.99")
     rows = torch.ones(rf.ROWS, dtype=torch.bool, device=ks.device)
     rows[rf._PREV_SHAPING] = False
-    errs, flips = {}, {}
-    for name, k, p, max_flips in (
+    rate = slice(rf._ANG_VEL, rf._ANG_VEL + 3)
+    rows[rate] = False
+    checks = [
         ("obs", ko, po, 0.0),
         ("action", km[:, 0:4], pm[:, 0:4], 0.0),
         ("logprob", km[:, 4:8], pm[:, 4:8], 0.0),
         ("value", km[:, 8], pm[:, 8], 0.0),
         ("solved", km[:, 11], pm[:, 11], 0.0),
         ("s_final", ks[rows], ps[rows], 0.0),
+        ("euler_rate", ks[rate], ps[rate], 0.0),
         ("reward", km[:, 9], pm[:, 9], 1e-4),
         ("shaping_carry", ks[rf._PREV_SHAPING], ps[rf._PREV_SHAPING], 1e-4),
-    ):
+    ]
+    errs, flips = {}, {}
+    for name, k, p, max_flips in checks:
         k, p = k[..., same], p[..., same]
         diff = (k - p).abs()
-        bad = diff > atol + rtol * p.abs()
+        bad = diff > atol + (rate_atol if name == "euler_rate" else 0.0) + rtol * p.abs()
         n_bad = int(bad.sum())
         errs[name] = diff[~bad].max().item()
         if n_bad:
@@ -366,6 +410,7 @@ def compare(kernel_out, plain_out, atol: float, rtol: float) -> dict:
         "bonus_flips": flips,
         "atol": atol,
         "rtol": rtol,
+        "rate_atol": rate_atol,
     }
 
 
@@ -401,10 +446,11 @@ def _ptxas_entries(log: str) -> dict:
     return entries
 
 
-def _ptxas(name: str, info: dict) -> dict:
-    lib = _build.load(name)
+def _ptxas(name: str, defines: tuple, info: dict) -> dict:
+    lib = _build.load(name, defines)
     log = info["log"]
     return {
+        "defines": dict(defines),
         "nvcc_seconds": info["seconds"],
         "cached": info["cached"],
         "entries": _ptxas_entries(log),
@@ -414,12 +460,15 @@ def _ptxas(name: str, info: dict) -> dict:
 
 
 def phase_build() -> dict:
-    """One nvcc per kernel source, all started together."""
+    """One nvcc per kernel source and instantiation, all started together."""
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(LIBRARIES)) as pool:
-        infos = dict(zip(LIBRARIES, pool.map(_build.build, LIBRARIES)))
-    out = {"phase": "build", "seconds": time.perf_counter() - t0,
-           "kernels": {name: _ptxas(name, info) for name, info in infos.items()}}
+        infos = list(pool.map(lambda lib: _build.build(*lib), LIBRARIES))
+    kernels = {}
+    for (name, defines), info in zip(LIBRARIES, infos):
+        tag = "".join(f"-{k.lower()}{v}" for k, v in defines)
+        kernels[name + tag] = _ptxas(name, defines, info)
+    out = {"phase": "build", "seconds": time.perf_counter() - t0, "kernels": kernels}
     emit(out)
     return out
 
@@ -554,7 +603,7 @@ GRAD_SMALL = (8, 1024, 128, 24)  # T, B, tile, blocks of the small shape
 CLIP_EPS, ENTROPY_COEF = 0.2, 0.006  # PPOConfig defaults
 
 
-def grad_flops_per_row(hidden: int) -> int:
+def grad_flops_per_row(hidden: int, obs: int = pf.OBS) -> int:
     """The f32 FLOP per row of the products the gradient function needs, per
     head (actor with ACT outputs, critic with 1): the forward x.W1, h1.W2,
     h2.W3; the three weight gradients, as many again; the data gradients
@@ -564,14 +613,14 @@ def grad_flops_per_row(hidden: int) -> int:
     gradient that neither kernel computes."""
     total = 0
     for out in (pf.ACT, 1):
-        forward = 2 * (pf.OBS * hidden + hidden * hidden + hidden * out)
+        forward = 2 * (obs * hidden + hidden * hidden + hidden * out)
         data_grad = 2 * (hidden * out + hidden * hidden)
         total += 2 * forward + data_grad
     return total
 
 
 def grad_bound(rows: int, n_blocks: int, hidden: int, n_params: int,
-               adam: bool = False) -> tuple[float, str, float, float]:
+               adam: bool = False, obs: int = pf.OBS) -> tuple[float, str, float, float]:
     """The least time the card could take for one gradient call: the larger
     of the products' f32 FLOP (`grad_flops_per_row`) over the f32 peak, and
     the bytes that must move (the rows' obs and aux read once, the block ids
@@ -579,19 +628,24 @@ def grad_bound(rows: int, n_blocks: int, hidden: int, n_params: int,
     rate. With ``adam`` (B4) the gradients are not written; the two moments
     are read and they and the weights written instead, and the step adds
     about 12 FLOP per parameter."""
-    flops = float(rows) * grad_flops_per_row(hidden) + (12.0 * n_params if adam else 0.0)
-    bytes_ = 4.0 * (rows * (pf.OBS + 8) + n_blocks + (6 if adam else 2) * n_params)
+    flops = float(rows) * grad_flops_per_row(hidden, obs) + (12.0 * n_params if adam else 0.0)
+    bytes_ = 4.0 * (rows * (obs + 8) + n_blocks + (6 if adam else 2) * n_params)
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, bytes_ / PEAK_HBM_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, bytes_
 
 
-def grad_tc_bound(rows: int) -> float:
-    """The gradient kernels' least time on the tensor cores, in ms: 3xTF32
-    forms each f32 product as three TF32 products, so 3 x the products' FLOP
-    (`grad_flops_per_row`) over the TF32 peak. Beside it the f32 bound
-    (`grad_bound`) stays the bound of the function; each row also takes
-    512 accurate tanhf on the CUDA cores."""
-    return 1e3 * 3.0 * rows * grad_flops_per_row(pf.HIDDEN) / PEAK_TF32_FLOPS
+def grad_tc_bound(rows: int, hidden: int = 128, compute: str = "f32",
+                  obs: int = pf.OBS) -> float:
+    """The gradient kernels' least time on the tensor cores, in ms: in f32
+    (3xTF32) each f32 product is three TF32 products, so 3 x the products'
+    FLOP (`grad_flops_per_row`) over the TF32 peak; in bf16 the FLOP over
+    the dense bf16 peak. Beside it the f32 bound (`grad_bound`) stays the
+    bound of the function; each row also takes 4 H accurate tanhf on the
+    CUDA cores."""
+    flops = rows * grad_flops_per_row(hidden, obs)
+    if compute == "bf16":
+        return 1e3 * flops / PEAK_BF16_FLOPS
+    return 1e3 * 3.0 * flops / PEAK_TF32_FLOPS
 
 
 def metric_errors(loss, met, lp, mp, aux) -> tuple[dict, dict]:
@@ -616,17 +670,19 @@ def metric_errors(loss, met, lp, mp, aux) -> tuple[dict, dict]:
 
 
 def grad_compare(model, obs_t, aux_t, blocks, tile: int, kernel=None, plain=None,
-                 phase: str = "grad_t_vs_plain") -> dict:
+                 phase: str = "grad_t_vs_plain", compute: str = "f32",
+                 leaf_tol: float = 1e-4) -> dict:
     """A gradient kernel (B2 by default, or ``kernel`` with its ``plain``
-    version) against its plain version on the same tensors: loss and
-    metrics within rtol 1e-4 (as `metric_errors` holds them), each gradient
-    leaf within a relative Frobenius error of 1e-4 (sums over up to 5e5
-    rows cancel, so an elementwise rtol
-    is the wrong yardstick at that size). A second launch must give the same
-    bits: the reduction runs in a fixed order."""
+    version) against its plain version on the same tensors, both with
+    products in ``compute``: loss and metrics within rtol 1e-4 (as
+    `metric_errors` holds them), each gradient leaf within a relative
+    Frobenius error of ``leaf_tol`` (sums over up to 5e5 rows cancel, so an
+    elementwise rtol is the wrong yardstick at that size). A second launch
+    must give the same bits: the reduction runs in a fixed order."""
     kernel = kernel or pf.fused_ppo_grad_t
     plain = plain or pf.ppo_grad_t_plain
-    kw = dict(tile=tile, action_std=ACTION_STD, clip_eps=CLIP_EPS, entropy_coef=ENTROPY_COEF)
+    kw = dict(tile=tile, action_std=ACTION_STD, clip_eps=CLIP_EPS, entropy_coef=ENTROPY_COEF,
+              compute_dtype=compute)
     loss, met, grads = kernel(model, obs_t, aux_t, blocks, **kw)
     loss2, _, grads2 = kernel(model, obs_t, aux_t, blocks, **kw)
     sync()
@@ -650,7 +706,7 @@ def grad_compare(model, obs_t, aux_t, blocks, tile: int, kernel=None, plain=None
         "ratio_max": met["ratio_max"].item(),
     }
     bad = {k: v for k, v in held.items() if not v <= 1e-4}
-    if bad or not max(leaf_fro) <= 1e-4 or not deterministic:
+    if bad or not max(leaf_fro) <= leaf_tol or not deterministic:
         emit({"phase": phase, "failed": out})
         raise AssertionError(f"gradient kernel disagrees: {bad}, max leaf rel fro "
                              f"{max(leaf_fro):.3e}, deterministic={deterministic}")
@@ -731,12 +787,13 @@ def _leaves_of(model) -> list:
     return [p for layer in model.linears() for p in (layer.weight, layer.bias)]
 
 
-def adam_compare(model, obs, aux, blocks, tile: int, warm_blocks: list) -> dict:
+def adam_compare(model, obs, aux, blocks, tile: int, warm_blocks: list, compute: str = "f32",
+                 tol: float = 1e-4, phase: str = "grad_vs_plain") -> dict:
     """B4 against its plain version from the same Adam state, after
-    ``warm_blocks``' plain steps (none: an empty state): new params,
-    exp_avg and exp_avg_sq within a relative Frobenius error of 1e-4 per
-    leaf, loss and metrics within rtol 1e-4, and the same bits from a second
-    launch from the same state.
+    ``warm_blocks``' plain steps (none: an empty state), products in
+    ``compute``: new params, exp_avg and exp_avg_sq within a relative
+    Frobenius error of ``tol`` per leaf, loss and metrics within rtol 1e-4,
+    and the same bits from a second launch from the same state.
 
     Adam steps each entry by lr * m / (sqrt(v) + eps) with m, v its new
     moments; from an empty state that is lr * g / (|g| + eps), about lr *
@@ -744,12 +801,13 @@ def adam_compare(model, obs, aux, blocks, tile: int, warm_blocks: list) -> dict:
     in opposite directions with no fault in either. Such sign flips are
     counted, left out of the params' error, and each must sit where |m| is
     within the error the moments are held to (1e-4 of the leaf's Frobenius
-    norm); from an empty state m = (1 - b1) g, so that is B3's gradient
-    error."""
+    norm, ``tol``); from an empty state m = (1 - b1) g, so that is B3's
+    gradient error."""
     params = _leaves_of(model)
     opt = torch.optim.Adam(params, lr=LEARN_LR, betas=(0.9, 0.999), eps=1e-8)
     for wb in warm_blocks:
-        _, _, grads = pr.ppo_grad_plain(model, obs, aux, wb, tile=tile, **ROW_KW)
+        _, _, grads = pr.ppo_grad_plain(model, obs, aux, wb, tile=tile, compute_dtype=compute,
+                                        **ROW_KW)
         for p, g in zip(params, grads):
             p.grad = g
         opt.step()
@@ -760,7 +818,7 @@ def adam_compare(model, obs, aux, blocks, tile: int, warm_blocks: list) -> dict:
     lp, mp, p_want, m_want, v_want, _ = pr.ppo_grad_adam_plain(
         [x.clone() for x in before[0]], [x.clone() for x in before[1]],
         [x.clone() for x in before[2]], step, obs, aux, blocks, tile=tile,
-        lr=LEARN_LR, b1=0.9, b2=0.999, eps=1e-8, **ROW_KW,
+        lr=LEARN_LR, b1=0.9, b2=0.999, eps=1e-8, compute_dtype=compute, **ROW_KW,
     )
     runs = []
     for _ in range(2):
@@ -770,7 +828,8 @@ def adam_compare(model, obs, aux, blocks, tile: int, warm_blocks: list) -> dict:
                     x.copy_(y)
         for p in params:
             opt.state[p]["step"].fill_(step)
-        loss, met = pr.fused_ppo_grad_adam(model, opt, obs, aux, blocks, tile=tile, **ROW_KW)
+        loss, met = pr.fused_ppo_grad_adam(model, opt, obs, aux, blocks, tile=tile,
+                                           compute_dtype=compute, **ROW_KW)
         sync()
         runs.append((loss, met, [[x.detach().clone() for x in xs] for xs in (params, m0, v0)]))
     (loss, met, got), (loss2, _, got2) = runs
@@ -798,9 +857,9 @@ def adam_compare(model, obs, aux, blocks, tile: int, warm_blocks: list) -> dict:
     }
     bad = {k: v for k, v in held.items() if not v <= 1e-4}
     worst = max(max(v) for v in fro.values())
-    if (bad or not worst <= 1e-4 or not deterministic or not flip_m <= 1e-4
+    if (bad or not worst <= tol or not deterministic or not flip_m <= tol
             or out["step_after"] != step + 1):
-        emit({"phase": "grad_vs_plain", "failed": out})
+        emit({"phase": phase, "failed": out})
         raise AssertionError(f"B4 disagrees: {bad}, worst leaf rel fro {worst:.3e}, "
                              f"flips {flips} (max |m|/||m|| {flip_m:.3e}), "
                              f"deterministic={deterministic}")
@@ -826,7 +885,7 @@ def trainer_batch(env_cfg=None):
     _, roll, boot = ppo.rollout_batch(model, state.env_states, state.gen, env_cfg, LEARN_T)
     returns, advs = gae_advantages(roll.rewards, roll.values, roll.dones, boot,
                                    pcfg.gamma, pcfg.gae_lambda)
-    obs = roll.obs.reshape(-1, pr.OBS).contiguous()
+    obs = roll.obs.reshape(-1, pf.OBS).contiguous()
     aux = pr.pack_aux(roll.actions.reshape(obs.shape[0], -1),
                       roll.logprobs.reshape(obs.shape[0], -1), returns.reshape(-1),
                       advs.reshape(-1))
@@ -876,7 +935,7 @@ def phase_grad_vs_plain() -> dict:
     t0 = time.perf_counter()
     n = 7680
     g = torch.Generator(device=DEVICE).manual_seed(31)
-    obs = torch.randn(n, pr.OBS, generator=g, device=DEVICE) * 0.3
+    obs = torch.randn(n, pf.OBS, generator=g, device=DEVICE) * 0.3
     aux = torch.zeros(n, 8, device=DEVICE)
     aux[:, 0:4] = torch.randn(n, 4, generator=g, device=DEVICE) * 0.2
     aux[:, 4] = torch.randn(n, generator=g, device=DEVICE) * 0.4 - 4.0
@@ -896,7 +955,7 @@ def phase_grad_vs_plain() -> dict:
     adam_small_cold = adam_compare(copy.deepcopy(model), obs, aux, perm[:n_blocks], tile, [])
 
     model, obs_t, aux_t, blocks = bench_minibatch()
-    obs_r = obs_t.transpose(1, 2).reshape(-1, pr.OBS).contiguous()
+    obs_r = obs_t.transpose(1, 2).reshape(-1, pf.OBS).contiguous()
     aux_r = aux_t.transpose(1, 2).reshape(-1, 8).contiguous()
     del obs_t, aux_t
     bench = grad_compare(model, obs_r, aux_r, blocks, BENCH_TILE, pr.fused_ppo_grad,
@@ -1301,6 +1360,259 @@ def phase_learn(phase: str = "learn", first_eval: int = 0, **flags) -> dict:
     if solved_at is None:
         raise AssertionError(f"no eval reached eval_solved >= {LEARN_SOLVED} by update "
                              f"{LEARN_MAX_UPDATES}")
+    return out
+
+
+KO_ROLLOUT = dict(B=1024, T=32, P=4)   # B1's comparisons at each new width
+# Each instantiated width, and widths 16 and 200 that run zero-padded on
+# the 32- and 256-wide instantiations.
+KO_WIDTHS = (32, 64, 256, 16, 200)
+# The Euler-rate rows' extra tolerance in B1's comparisons (`compare`): 16
+# ulps of an angle near pi (2^-22 each) over dt = 0.01, 3.8e-4. Earlier
+# runs on an H100 80GB HBM3 at 700 W saw rate errors of 2.3e-4 to 3.1e-4
+# (atol + rtol |x| about 2.1e-4 there), every other row within 1e-4.
+RATE_ATOL = 16 * 2.0 ** -22 / EnvConfig().dt
+# B2's cases on seeded transposed data (T, B): (tile, hidden, obs); tiles
+# 8, 24 and 18 (4-byte copies: B and the tile are not multiples of 4) at
+# hidden 128, at tile 128 hidden 32 and 256, 16 and 200 zero-padded on 32
+# and 256, and 200 with the wide obs 180 (read in place, dW1 summed in the
+# workspace).
+KO_B2 = ((8, 1536, 8, 128, 75), (8, 1536, 24, 128, 75), (8, 1026, 18, 128, 75),
+         (8, 1536, 128, 32, 75), (8, 1536, 128, 256, 75), (8, 1536, 128, 16, 75),
+         (8, 1536, 128, 200, 75), (8, 1536, 128, 200, 180))
+# B3/B4's cases on seeded row-major rows: (obs, hidden, compute); obs 60,
+# widths 256, 16 and 200 (zero-padded), bf16, and the wide obs 180 at 200
+# (on the 256-wide instantiation, 4 slices) and 300 at 100 (128-wide, 1).
+KO_ROWMAJOR_GRADS = ((60, 128, "f32"), (75, 256, "f32"), (75, 128, "bf16"), (75, 16, "f32"),
+                     (75, 200, "f32"), (180, 200, "f32"), (300, 100, "f32"))
+KO_B2_BLOCKS = 200  # a shuffled subset: chunks gather blocks, the last one ragged
+KO_ROWS = 7680      # B3/B4's seeded row-major rows, tile 40 (chunks span blocks)
+KO_TILE, KO_ROW_BLOCKS = 40, 29
+KO_BF16_TOL = 1e-3  # bf16 cases: leaves within this relative Frobenius error
+# The warm fully fused steps at bench.py's shape: (name, hidden, compute).
+KO_STEPS = (("hidden64", 64, "f32"), ("hidden256", 256, "f32"), ("bf16", 128, "bf16"))
+# The row-major steps, counted, at the trainer's envs and full batch but 16
+# steps a rollout (a 128-step rollout's graph capture took 6-8 s a case on
+# the H100):
+# (name, hist_t, hidden, compute, fused_adam).
+KO_ROWMAJOR_T = 16
+KO_ROWMAJOR = (("obs60_b3", 4, 128, "f32", False), ("obs60_b4", 4, 128, "f32", True),
+               ("hidden256_b4", 5, 256, "f32", True), ("bf16_b4", 5, 128, "bf16", True),
+               ("bf16_b3", 5, 128, "bf16", False), ("hidden16_b4", 5, 16, "f32", True),
+               ("hidden200_obs180_b4", 12, 200, "f32", True))
+
+
+def _seeded_t(steps: int, b: int, seed: int, obs_dim: int = pf.OBS):
+    """Seeded transposed rows (T, obs_dim, B) and aux (T, 8, B), ratios on
+    both sides of the clip band, as phase_grad_t_vs_plain draws them."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    obs = torch.randn(steps, obs_dim, b, generator=g, device=DEVICE) * 0.3
+    aux = torch.zeros(steps, 8, b, device=DEVICE)
+    aux[:, 0:4] = torch.randn(steps, 4, b, generator=g, device=DEVICE) * 0.2
+    aux[:, 4] = torch.randn(steps, b, generator=g, device=DEVICE) * 0.4 - 4.0
+    aux[:, 5:7] = torch.randn(steps, 2, b, generator=g, device=DEVICE)
+    return obs, aux, g
+
+
+def _seeded_rows(n: int, obs_dim: int, seed: int):
+    """Seeded row-major rows (n, obs_dim) and aux (n, 8), as
+    phase_grad_vs_plain draws them."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    obs = torch.randn(n, obs_dim, generator=g, device=DEVICE) * 0.3
+    aux = torch.zeros(n, 8, device=DEVICE)
+    aux[:, 0:4] = torch.randn(n, 4, generator=g, device=DEVICE) * 0.2
+    aux[:, 4] = torch.randn(n, generator=g, device=DEVICE) * 0.4 - 4.0
+    aux[:, 5:7] = torch.randn(n, 2, generator=g, device=DEVICE)
+    return obs, aux, g
+
+
+def _model(hidden: int, seed: int, obs_dim: int = pf.OBS):
+    torch.manual_seed(seed)
+    return ActorCritic(hidden=hidden, obs_dim=obs_dim, action_std=ACTION_STD).to(DEVICE)
+
+
+def _grad_row(kernel: str, model, compute: str, cmp: dict, ms: float, plain_ms: float,
+              obs_dim: int, n_blocks: int, adam: bool = False) -> dict:
+    """One gradient instantiation's line: its agreement, times and bounds,
+    and the instantiation as its library reports it."""
+    n_params = sum(p.numel() for p in model.parameters())
+    bound_ms, bound_by, _, _ = grad_bound(cmp["rows"], n_blocks, model.hidden, n_params,
+                                          adam=adam, obs=obs_dim)
+    source = "ppo_fused_t" if kernel == "ppo_fused_t" else "ppo_fused"
+    lib = pf.load_lib(source, model.hidden, obs_dim, compute)
+    return {
+        "kernel": kernel, "hidden": model.hidden, "obs": obs_dim, "compute": compute,
+        "instantiation": pf.instantiation(lib),
+        "compare": cmp, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "tc_bound_ms": grad_tc_bound(cmp["rows"], model.hidden, compute, obs_dim),
+    }
+
+
+def _ko_rollouts() -> list:
+    """B1 at each new width against its plain version (1e-4 over 32 steps,
+    default and tight bounding box, the seeds of kernel_vs_plain; the
+    Euler-rate rows within RATE_ATOL more, see `compare`), with both times
+    and the bound."""
+    rows = []
+    b, t, p = KO_ROLLOUT["B"], KO_ROLLOUT["T"], KO_ROLLOUT["P"]
+    for hidden in KO_WIDTHS:
+        runs = []
+        for bb_scale in (1.0, 0.15):
+            cfg = EnvConfig(bb_scale=bb_scale)
+            model = _model(hidden, 11)
+            gen = torch.Generator(device=DEVICE).manual_seed(12)
+            states = hover.reset(gen, cfg, n=b)
+            inputs, out_k, out_p = kernel_and_plain(cfg, model, states, gen, steps=t,
+                                                    pool_size=p)
+            res = compare(out_k, out_p, atol=1e-4, rtol=1e-4, rate_atol=RATE_ATOL)
+            res["bb_scale"] = bb_scale
+            runs.append(res)
+        s0, noise, pool, wT = inputs
+        ms = time_cuda(lambda: rf.fused_rollout(s0, noise, pool, wT, cfg, ACTION_STD), 1, 5)
+        plain_ms = time_cuda(lambda: rf.rollout_plain(s0, noise, pool, wT, rf._scalars(cfg),
+                                                      ACTION_STD), 0, 1)
+        bound_ms, bound_by, _, _ = bound(b, t, p, hidden)
+        rows.append({"kernel": "rollout_fused", "hidden": hidden, "B": b, "T": t,
+                     "runs": runs, "max_abs_err": max(r["max_abs_err"] for r in runs),
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "tc_bound_ms": rollout_tc_bound(b, t, hidden)})
+    return rows
+
+
+def _ko_grads() -> list:
+    """B2, B3 and B4 at each new instantiation against their plain versions
+    (f32 at the old gates; bf16 leaves within KO_BF16_TOL), with times."""
+    rows = []
+    cases = [(steps, b, tile, hidden, obs_dim, "f32")
+             for steps, b, tile, hidden, obs_dim in KO_B2]
+    cases.append((8, 1536, 128, 128, pf.OBS, "bf16"))
+    for steps, b, tile, hidden, obs_dim, compute in cases:
+        obs, aux, g = _seeded_t(steps, b, 41, obs_dim)
+        model = _model(hidden, 42, obs_dim)
+        n_blocks = min(KO_B2_BLOCKS, steps * b // tile)
+        blocks = torch.randperm(steps * b // tile, generator=g, device=DEVICE)[:n_blocks]
+        blocks = blocks.to(torch.int32)
+        tol = KO_BF16_TOL if compute == "bf16" else 1e-4
+        cmp = grad_compare(model, obs, aux, blocks, tile, phase="kernel_options",
+                           compute=compute, leaf_tol=tol)
+        kw = dict(tile=tile, compute_dtype=compute, **ROW_KW)
+        ms = time_cuda(lambda: pf.fused_ppo_grad_t(model, obs, aux, blocks, **kw), 2, 10)
+        plain_ms = time_cuda(lambda: pf.ppo_grad_t_plain(model, obs, aux, blocks, **kw), 1, 3)
+        row = _grad_row("ppo_fused_t", model, compute, cmp, ms, plain_ms, obs_dim, n_blocks)
+        row.update(T=steps, B=b, tile=tile)
+        rows.append(row)
+    for obs_dim, hidden, compute in KO_ROWMAJOR_GRADS:
+        obs, aux, g = _seeded_rows(KO_ROWS, obs_dim, 43)
+        model = _model(hidden, 44, obs_dim)
+        perm = torch.randperm(KO_ROWS // KO_TILE, generator=g, device=DEVICE).to(torch.int32)
+        blocks = perm[:KO_ROW_BLOCKS]
+        tol = KO_BF16_TOL if compute == "bf16" else 1e-4
+        cmp = grad_compare(model, obs, aux, blocks, KO_TILE, pr.fused_ppo_grad,
+                           pr.ppo_grad_plain, "kernel_options", compute, tol)
+        warm = [perm[KO_ROW_BLOCKS * (i + 1): KO_ROW_BLOCKS * (i + 2)] for i in range(3)]
+        adam_warm = adam_compare(copy.deepcopy(model), obs, aux, blocks, KO_TILE, warm,
+                                 compute, tol, "kernel_options")
+        adam_empty = adam_compare(copy.deepcopy(model), obs, aux, blocks, KO_TILE, [],
+                                  compute, tol, "kernel_options")
+        kw = dict(tile=KO_TILE, compute_dtype=compute, **ROW_KW)
+        ms = time_cuda(lambda: pr.fused_ppo_grad(model, obs, aux, blocks, **kw), 2, 10)
+        plain_ms = time_cuda(lambda: pr.ppo_grad_plain(model, obs, aux, blocks, **kw), 1, 3)
+        rows.append(dict(_grad_row("ppo_fused", model, compute, cmp, ms, plain_ms, obs_dim,
+                                   KO_ROW_BLOCKS), tile=KO_TILE))
+        m_adam = copy.deepcopy(model)
+        opt = torch.optim.Adam(m_adam.parameters(), lr=LEARN_LR, eps=1e-8)
+        ms = time_cuda(lambda: pr.fused_ppo_grad_adam(m_adam, opt, obs, aux, blocks, **kw), 2, 10)
+        m0 = [torch.zeros_like(x) for x in _leaves_of(model)]
+        plain_ms = time_cuda(lambda: pr.ppo_grad_adam_plain(
+            model, m0, m0, 0, obs, aux, blocks, lr=LEARN_LR, b1=0.9, b2=0.999, **kw), 1, 3)
+        rows.append(dict(_grad_row("ppo_fused_adam", model, compute, adam_warm, ms, plain_ms,
+                                   obs_dim, KO_ROW_BLOCKS, adam=True), tile=KO_TILE,
+                         empty_state=adam_empty))
+    return rows
+
+
+def _ko_steps() -> list:
+    """A warm fully fused train step at bench.py's shape per KO_STEPS case:
+    1 B1 and 40 B2 launches a step, counted; the step's ms, each kernel's
+    time at the step's shapes and its bounds."""
+    rows = []
+    for name, hidden, compute in KO_STEPS:
+        env_cfg, pcfg, tcfg = bench_configs()
+        pcfg = dataclasses.replace(pcfg, fused_compute=compute)
+        tcfg = dataclasses.replace(tcfg, network_size=hidden)
+        model, opt, state = ppo.ppo_init(1, env_cfg, pcfg, tcfg, device=DEVICE)
+        step = ppo.make_train_step(model, opt, env_cfg, pcfg, tcfg)
+        n_mb = 4
+        state, step_ms, launches, metrics, _ = counted_steps(
+            step, state, model, 2, launches_want(rollout_fused=1, ppo_fused_t=BENCH_K * n_mb))
+        s0, noise, pool, wT = fused_inputs(model, state.env_states, state.gen, env_cfg,
+                                           BENCH_T, BENCH_P)
+        b1_ms = time_cuda(lambda: rf.fused_rollout(s0, noise, pool, wT, env_cfg, ACTION_STD),
+                          1, 3)
+        _, obs_t, misc, boot = ppo.rollout_from_inputs(model, state.env_states, noise, pool,
+                                                       env_cfg)
+        returns, advs = gae_advantages(misc[:, 9], misc[:, 8], misc[:, 10] > 0.5, boot,
+                                       pcfg.gamma, pcfg.gae_lambda)
+        aux_t = ppo.pack_aux_t(misc, returns, advs)
+        n_all = BENCH_T * BENCH_B // BENCH_TILE
+        blocks = torch.randperm(n_all, generator=state.gen, device=DEVICE)[: n_all // n_mb]
+        blocks = blocks.to(torch.int32)
+        kw = dict(tile=BENCH_TILE, compute_dtype=compute, **ROW_KW)
+        b2_ms = time_cuda(lambda: pf.fused_ppo_grad_t(model, obs_t, aux_t, blocks, **kw), 1, 5)
+        b2_plain_ms = time_cuda(lambda: pf.ppo_grad_t_plain(model, obs_t, aux_t, blocks, **kw),
+                                1, 2)
+        rows_mb = BENCH_B * BENCH_T // n_mb
+        n_params = sum(p.numel() for p in model.parameters())
+        b1_bound, b1_by, _, _ = bound(BENCH_B, BENCH_T, BENCH_P, hidden)
+        b2_bound, b2_by, _, _ = grad_bound(rows_mb, n_all // n_mb, hidden, n_params)
+        rows.append({
+            "case": name, "hidden": hidden, "compute": compute, "B": BENCH_B, "T": BENCH_T,
+            "launches_per_step": launches, "step_ms": step_ms, "warm_step_ms": step_ms[-1],
+            "metrics": metrics,
+            "rollout_ms": b1_ms, "rollout_bound_ms": b1_bound, "rollout_bound_by": b1_by,
+            "rollout_tc_bound_ms": rollout_tc_bound(BENCH_B, BENCH_T, hidden),
+            "grad_ms": b2_ms, "grad_plain_ms": b2_plain_ms, "grad_bound_ms": b2_bound,
+            "grad_bound_by": b2_by,
+            "grad_tc_bound_ms": grad_tc_bound(rows_mb, hidden, compute),
+        })
+        del model, opt, state, step, obs_t, misc, aux_t
+    return rows
+
+
+def _ko_rowmajor() -> list:
+    """Two row-major train steps per KO_ROWMAJOR case at the trainer's
+    defaults but KO_ROWMAJOR_T steps a rollout (1024 envs, full batch,
+    per-step auto-reset), every launch counter set to 0 just before each
+    and read just after: 10 B3 or 10 B4."""
+    rows = []
+    for name, hist_t, hidden, compute, adam in KO_ROWMAJOR:
+        env_cfg = EnvConfig(hist_t=hist_t)
+        pcfg = PPOConfig(lr=LEARN_LR, k_epochs=10, fused_update=True, fused_adam=adam,
+                         fused_compute=compute)
+        tcfg = TrainConfig(num_envs=LEARN_B, rollout_steps=KO_ROWMAJOR_T, network_size=hidden)
+        model, opt, state = ppo.ppo_init(0, env_cfg, pcfg, tcfg, obs_dim=hist_t * 15,
+                                         device=DEVICE)
+        step = ppo.make_train_step(model, opt, env_cfg, pcfg, tcfg)
+        want = launches_want(**{"ppo_fused_adam" if adam else "ppo_fused": pcfg.k_epochs})
+        state, step_ms, launches, metrics, _ = counted_steps(step, state, model, 2, want)
+        rows.append({"case": name, "hist_t": hist_t, "hidden": hidden, "compute": compute,
+                     "launches_per_step": launches, "step_ms": step_ms, "metrics": metrics})
+    return rows
+
+
+def phase_kernel_options() -> dict:
+    """The kernel options beyond the trainer's defaults (hidden widths 32,
+    64 and 256 and widths run zero-padded on them, obs 60 and wide obs, any
+    B2 tile, bf16 products), each against its plain
+    version, in train steps with their launches counted, and the bf16
+    learning gate (phase_learn with fused_compute="bf16")."""
+    t0 = time.perf_counter()
+    out = {"phase": "kernel_options", "card": card(), "rollouts": _ko_rollouts(),
+           "grads": _ko_grads(), "steps": _ko_steps(), "rowmajor": _ko_rowmajor()}
+    out["learn_bf16"] = phase_learn("learn_bf16", fused_compute="bf16")
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
     return out
 
 
@@ -3018,7 +3330,7 @@ def dp_rank(mesh) -> dict:
     _, roll, boot = ppo.rollout_batch(model, state.env_states, state.gen, env_cfg, LEARN_T)
     returns, advs = gae_advantages(roll.rewards, roll.values, roll.dones, boot,
                                    pcfg.gamma, pcfg.gae_lambda)
-    obs = roll.obs.reshape(-1, pr.OBS).contiguous()
+    obs = roll.obs.reshape(-1, pf.OBS).contiguous()
     aux = pr.pack_aux(roll.actions.reshape(obs.shape[0], -1),
                       roll.logprobs.reshape(obs.shape[0], -1), returns.reshape(-1),
                       advs.reshape(-1))
@@ -3420,6 +3732,7 @@ def main() -> int:
     trr = phase_train_rowmajor(tr["warm_step_ms"])
     ln = phase_learn()
     lnr = phase_learn("learn_rowmajor", LEARN_ROWMAJOR_FIRST_EVAL, fused_adam=True)
+    ko = phase_kernel_options()
     robust = (phase_robust_vs_plain(), phase_robust_train(), phase_robust_eval(),
               phase_robust_eval(seed=7), phase_train_cli())
     tl = phase_train_landing()
@@ -3429,7 +3742,7 @@ def main() -> int:
     vision = (phase_vision(), phase_apps())
     parallel = (phase_dp(), phase_dp_cli(),
                 phase_stacked(trr["trainer_defaults"]["ms_per_update"]))
-    for out in (kvp, gvp, rvp, rnd, sl, fly, lvp, lgve, land, land7, tr, trr, ln, lnr,
+    for out in (kvp, gvp, rvp, rnd, sl, fly, lvp, lgve, land, land7, tr, trr, ln, lnr, ko,
                 tl) + robust + control + vision + parallel:
         seconds[out["phase"]] = out["seconds"]
     max_err = max([r["max_abs_err"] for r in kvp["runs"]] + [sl["compare"]["max_abs_err"]])

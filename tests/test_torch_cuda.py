@@ -167,9 +167,10 @@ def test_grad_kernel_refuses_what_it_does_not_take(card):
     kw = dict(action_std=0.1, clip_eps=0.2, entropy_coef=0.006)
     before = pf.fused_ppo_grad_t.launches
     for bad in (
-        lambda: pf.fused_ppo_grad_t(model, obs, aux, blocks, tile=16, **kw),   # not a multiple of 32
+        lambda: pf.fused_ppo_grad_t(model, obs, aux, blocks, tile=24, **kw),   # does not divide B
         lambda: pf.fused_ppo_grad_t(model, obs, aux, blocks, tile=48, **kw),   # does not divide B
-        lambda: pf.fused_ppo_grad_t(ActorCritic(hidden=32).to(card), obs, aux, blocks, tile=32, **kw),
+        lambda: pf.fused_ppo_grad_t(ActorCritic(hidden=257).to(card), obs, aux, blocks, tile=32,
+                                    **kw),                                     # above 256
         lambda: pf.fused_ppo_grad_t(model, obs, aux, blocks.long(), tile=32, **kw),
         lambda: pf.fused_ppo_grad_t(model, obs.double(), aux, blocks, tile=32, **kw),
         lambda: pf.fused_ppo_grad_t(model, obs, aux[:, :7].contiguous(), blocks, tile=32, **kw),
@@ -401,8 +402,8 @@ def test_rows_kernels_refuse_what_they_do_not_take(card):
     before = (pr.fused_ppo_grad.launches, pr.fused_ppo_grad_adam.launches)
     for bad in (
         lambda: pr.fused_ppo_grad(model, obs, aux, blocks, tile=48, **ROW_KW),  # does not divide n
-        lambda: pr.fused_ppo_grad(ActorCritic(hidden=32).to(card), obs, aux, blocks, tile=32,
-                                  **ROW_KW),
+        lambda: pr.fused_ppo_grad(ActorCritic(hidden=257).to(card), obs, aux, blocks, tile=32,
+                                  **ROW_KW),                                   # above 256
         lambda: pr.fused_ppo_grad(model, obs, aux, blocks.long(), tile=32, **ROW_KW),
         lambda: pr.fused_ppo_grad(model, obs.double(), aux, blocks, tile=32, **ROW_KW),
         lambda: pr.fused_ppo_grad(model, obs.t().contiguous().t(), aux, blocks, tile=32, **ROW_KW),
@@ -417,30 +418,56 @@ def test_rows_kernels_refuse_what_they_do_not_take(card):
 
 
 def test_make_train_step_refuses_shapes_the_card_kernels_do_not_take(card):
-    """The configurations that the JAX package sends to a kernel the port's
-    kernels do not take yet are refused when the step is built, naming the
-    ROADMAP item, not at the first launch (ROADMAP C1); the autograd branch
-    takes any width."""
+    """The configurations the card's kernels took to be refused (hidden 32,
+    B2 tile 16, obs 60, bf16 products) now build, launch the kernels of their branch and
+    step finitely, and so do widths that run zero-padded on an instantiation
+    (20 on 32, 200 and 100 on 256 and 128) and obs too wide to stage (180
+    and 300, read in place); what is left refused when the step is built is
+    a hidden width above 256, naming its ROADMAP item (ROADMAP C1); the
+    autograd branch takes any width."""
     env_cfg = EnvConfig()
     small = TrainConfig(num_envs=64, rollout_steps=16, network_size=32)
+    fused = dict(fused_update=True, k_epochs=2)
+    # (PPOConfig, TrainConfig, launches of B1, B2, B3, B4 in one step)
     cases = [
-        (PPOConfig(fused_update=True), dataclasses.replace(small, fused_rollout=True)),  # B1+B2, 32
-        (PPOConfig(), dataclasses.replace(small, fused_rollout=True)),                   # B1, 32
-        (PPOConfig(fused_update=True), small),                                           # B3, 32
-        (PPOConfig(fused_update=True, fused_adam=True), small),                          # B4, 32
-        (PPOConfig(fused_update=True, shuffle_block=16),                                 # B2 tile 16
-         dataclasses.replace(small, network_size=128, fused_rollout=True)),
+        (PPOConfig(**fused), dataclasses.replace(small, fused_rollout=True), (1, 2, 0, 0)),
+        (PPOConfig(k_epochs=2), dataclasses.replace(small, fused_rollout=True), (1, 0, 0, 0)),
+        (PPOConfig(**fused), small, (0, 0, 2, 0)),
+        (PPOConfig(fused_adam=True, **fused), small, (0, 0, 0, 2)),
+        (PPOConfig(shuffle_block=16, **fused),                                  # B2 tile 16
+         dataclasses.replace(small, network_size=128, fused_rollout=True), (1, 2, 0, 0)),
+        (PPOConfig(fused_compute="bf16", **fused),                              # bf16 products
+         dataclasses.replace(small, fused_rollout=True), (1, 2, 0, 0)),
+        (PPOConfig(fused_compute="bf16", fused_adam=True, **fused), small, (0, 0, 0, 2)),
+        (PPOConfig(**fused),                                                    # hidden 20
+         dataclasses.replace(small, network_size=20, fused_rollout=True), (1, 2, 0, 0)),
     ]
     wide = dataclasses.replace(small, network_size=128)
     short = dataclasses.replace(env_cfg, hist_t=4)  # 60-dim obs
-    cases = [(env_cfg, p, t) for p, t in cases] + [
-        (short, PPOConfig(fused_update=True), wide),                                     # B3, obs 60
-        (short, PPOConfig(fused_update=True, fused_adam=True), wide),                    # B4, obs 60
+    cases = [(env_cfg, p, t, w) for p, t, w in cases] + [
+        (short, PPOConfig(**fused), wide, (0, 0, 2, 0)),                         # B3, obs 60
+        (short, PPOConfig(fused_adam=True, **fused), wide, (0, 0, 0, 2)),        # B4, obs 60
+        (dataclasses.replace(env_cfg, hist_t=12), PPOConfig(fused_adam=True, **fused),
+         dataclasses.replace(small, network_size=200), (0, 0, 0, 2)),            # obs 180, 200
+        (dataclasses.replace(env_cfg, hist_t=20), PPOConfig(**fused),
+         dataclasses.replace(small, network_size=100), (0, 0, 2, 0)),            # obs 300, 100
     ]
-    for env, pcfg, tcfg in cases:
-        model, opt, _ = ppo.ppo_init(0, env, pcfg, tcfg, obs_dim=env.hist_t * 15)
-        with pytest.raises(NotImplementedError, match="the rest of B1 and B2"):
-            ppo.make_train_step(model, opt, env, pcfg, tcfg)
+    counters = (rf.fused_rollout, pf.fused_ppo_grad_t, pr.fused_ppo_grad, pr.fused_ppo_grad_adam)
+    for env, pcfg, tcfg, want in cases:
+        model, opt, state = ppo.ppo_init(0, env, pcfg, tcfg, obs_dim=env.hist_t * 15)
+        step = ppo.make_train_step(model, opt, env, pcfg, tcfg)
+        for c in counters:
+            c.launches = 0
+        state, metrics = step(state)
+        torch.cuda.synchronize()
+        assert tuple(c.launches for c in counters) == want, (pcfg, tcfg)
+        assert all(torch.isfinite(v).all() for v in metrics.values())
+    for pcfg, tcfg in [(PPOConfig(**fused), dataclasses.replace(small, fused_rollout=True)),
+                       (PPOConfig(**fused), small)]:
+        model, opt, _ = ppo.ppo_init(0, env_cfg, pcfg, dataclasses.replace(tcfg, network_size=257))
+        with pytest.raises(NotImplementedError, match="hidden widths above 256"):
+            ppo.make_train_step(model, opt, env_cfg, pcfg,
+                                dataclasses.replace(tcfg, network_size=257))
     model, opt, state = ppo.ppo_init(0, env_cfg, PPOConfig(k_epochs=1), small)
     state, metrics = ppo.make_train_step(model, opt, env_cfg, PPOConfig(k_epochs=1), small)(state)
     assert all(torch.isfinite(v).all() for v in metrics.values())
@@ -902,8 +929,10 @@ def test_dp_steps_on_the_card(card, backend, world):
 
     if backend == "nccl" and torch.cuda.device_count() < world:
         pytest.skip(f"needs {world} cards")
-    for name in ("rollout_fused", "ppo_fused_t", "ppo_fused"):
-        _build.build(name)  # once here, not in every rank at once
+    for name, defines in (("rollout_fused", rf.library(128)),
+                          ("ppo_fused_t", pf.library(128, 75, "f32")),
+                          ("ppo_fused", pf.library(128, 75, "f32"))):
+        _build.build(name, defines)  # once here, not in every rank at once
     devices = [f"cuda:{r}" for r in range(world)] if backend == "nccl" else ["cuda:0"] * world
     ranks = launch.spawn(torch_dp_ranks.card_dp_rank, devices, backend, timeout=300,
                          deadline=600)

@@ -188,10 +188,13 @@ def test_wrappers_refuse_what_they_do_not_take():
 def test_supports_and_gather_rows():
     model, obs, _ = _model_and_rows()
     leaves = tpf._leaves(model)
-    assert not tpf.supports(obs, leaves, TILE)  # hidden 32
+    assert tpf.supports(obs, leaves, TILE)      # hidden 32: any width up to 256
     big = tpf._leaves(ActorCritic(hidden=128))
     assert tpf.supports(obs, big, TILE) and tpf.supports(obs, big, 3)
     assert not tpf.supports(obs, big, 40)       # does not divide 96 rows
+    assert not tpf.supports(obs, tpf._leaves(ActorCritic(hidden=257)), TILE)  # above 256
+    short = tpf._leaves(ActorCritic(hidden=32, obs_dim=60))
+    assert tpf.supports(obs[:, :60], short, TILE) and not tpf.supports(obs, short, TILE)
     x = torch.arange(12.0)[:, None].expand(12, 2)
     rows = tpf.gather_rows(x, torch.tensor([2, 0]), tile=3)
     assert rows[:, 0].tolist() == [6, 7, 8, 0, 1, 2]

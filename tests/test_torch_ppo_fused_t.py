@@ -13,6 +13,7 @@ float64 evaluation of the same loss (within 6.4e-6 of the leaf's largest
 entry), which `test_plain_matches_float64` pins."""
 
 import math
+import re
 
 import jax
 import jax.numpy as jnp
@@ -26,6 +27,7 @@ from autonomous_quadrotor_environment_tpu.ops.ppo_fused_t import fused_ppo_grad_
 from autonomous_quadrotor_environment_tpu.ops.rollout_fused import transpose_leaves as jtranspose
 from autonomous_quadrotor_environment_tpu_torch.agents.networks import LEAVES, ActorCritic
 from autonomous_quadrotor_environment_tpu_torch.ops import ppo_fused_t as tpf
+from autonomous_quadrotor_environment_tpu_torch.ops import rollout_fused as trf
 from torch_parity import n, t
 
 T_STEPS, B, TILE = 4, 128, 64
@@ -165,10 +167,13 @@ def test_supports_and_refusals():
     leaves = tpf._leaves(model)
     ob = t(obs_t)
     assert tpf.supports(ob, leaves, 64)
-    assert not tpf.supports(ob, leaves, 48)           # not a multiple of 32
+    assert tpf.supports(ob, leaves, 8) and tpf.supports(ob, leaves, 16)  # any tile dividing B
+    assert not tpf.supports(ob, leaves, 24)          # does not divide B
     assert not tpf.supports(ob, leaves, 256)          # does not divide B
     small = tpf._leaves(ActorCritic(hidden=32))
-    assert not tpf.supports(ob, small, 64)
+    assert tpf.supports(ob, small, 64)                # any width up to 256
+    wide = tpf._leaves(ActorCritic(hidden=257))
+    assert not tpf.supports(ob, wide, 64)             # ROADMAP B, hidden widths above 256
     # A tensor on neither the CPU nor a CUDA card is refused, not computed.
     with pytest.raises(ValueError):
         tpf.fused_ppo_grad_t(
@@ -177,61 +182,100 @@ def test_supports_and_refusals():
         )
 
 
-def test_pack_layout():
-    """The kernels' weight pack at the offsets `ops.ppo_fused_t` mirrors from
-    the header: per head W1 (out, in) with inputs 75-79 zero, one copy of W2
-    (out, in), W3 padded to 4 rows, b1, b2, b3 padded; the pads are zero."""
-    model = ActorCritic(hidden=128)
+@pytest.mark.parametrize("hidden, obs", [(128, 75), (20, 75), (200, 60)])
+def test_pack_layout(hidden, obs):
+    """The kernels' weight pack at the offsets the header declares
+    (`rollout_fused.pack_offsets`), at the instantiated width H >= hidden
+    and depth K1 >= obs: per head W1 (out, in) with inputs obs.. and units
+    hidden.. zero, one copy of W2 (out, in) zero-padded, W3 padded to 4 rows,
+    b1, b2, b3 padded; the pads are zero."""
+    model = ActorCritic(hidden=hidden, obs_dim=obs)
     leaves = tpf._leaves(model)
     pack = tpf._pack(leaves)
-    h, o, k1 = 128, 75, tpf.K1
-    assert pack.shape == (2, k1 * h + h * h + 4 * h + 2 * h + 4) == (2, tpf.PACK)
+    h, k1, n = trf.kernel_width(hidden), tpf.kernel_depth(hidden, obs), hidden
+    lay = trf.pack_offsets(h, k1)
+    assert pack.shape == (2, k1 * h + h * h + 4 * h + 2 * h + 4) == (2, lay["PACK"])
     for head in range(2):
         w1, b1, w2, b2, w3, b3 = leaves[6 * head: 6 * head + 6]
         p = pack[head]
-        w1p = p[tpf.P_W1: tpf.P_W2].view(h, k1)
-        assert torch.equal(w1p[:, :o], w1) and not w1p[:, o:].any()
-        assert torch.equal(p[tpf.P_W2: tpf.P_W3].view(h, h), w2)
-        w3p = p[tpf.P_W3: tpf.P_B1].view(4, h)
-        assert torch.equal(w3p[: w3.shape[0]], w3) and not w3p[w3.shape[0]:].any()
-        assert torch.equal(p[tpf.P_B1: tpf.P_B2], b1[:, 0])
-        assert torch.equal(p[tpf.P_B2: tpf.P_B3], b2[:, 0])
-        assert torch.equal(p[tpf.P_B3: tpf.P_B3 + w3.shape[0]], b3[:, 0])
-        assert not p[tpf.P_B3 + w3.shape[0]:].any()
+        w1p = p[lay["P_W1"]: lay["P_W2"]].view(h, k1)
+        assert torch.equal(w1p[:n, :obs], w1) and not w1p[:, obs:].any() and not w1p[n:].any()
+        w2p = p[lay["P_W2"]: lay["P_W3"]].view(h, h)
+        assert torch.equal(w2p[:n, :n], w2) and not w2p[n:].any() and not w2p[:, n:].any()
+        w3p = p[lay["P_W3"]: lay["P_B1"]].view(4, h)
+        assert torch.equal(w3p[: w3.shape[0], :n], w3) and not w3p[w3.shape[0]:].any()
+        assert not w3p[:, n:].any()
+        assert torch.equal(p[lay["P_B1"]: lay["P_B1"] + n], b1[:, 0])
+        assert torch.equal(p[lay["P_B2"]: lay["P_B2"] + n], b2[:, 0])
+        assert not p[lay["P_B1"] + n: lay["P_B2"]].any()
+        assert not p[lay["P_B2"] + n: lay["P_B3"]].any()
+        assert torch.equal(p[lay["P_B3"]: lay["P_B3"] + w3.shape[0]], b3[:, 0])
+        assert not p[lay["P_B3"] + w3.shape[0]:].any()
 
 
-def _header_constants() -> dict:
-    """The `constexpr int` constants of `csrc/ppo_grad.cuh`, evaluated in
-    order (those that are not plain integer arithmetic are skipped)."""
+def _c_to_python(expr: str) -> str:
+    """A C++ constant expression of the header as Python: ternaries (split
+    at their top-level ``?`` and ``:``), ``&&``, ``||``, ``!`` and ``/``."""
+    depth, q = 0, -1
+    for i, ch in enumerate(expr):
+        depth += (ch == "(") - (ch == ")")
+        if depth == 0 and ch == "?" and q < 0:
+            q = i
+        elif depth == 0 and ch == ":" and q >= 0:
+            return (f"(({_c_to_python(expr[q + 1:i])}) if ({_c_to_python(expr[:q])}) "
+                    f"else ({_c_to_python(expr[i + 1:])}))")
+    if expr.strip().startswith("(") and expr.strip().endswith(")") and "?" in expr:
+        inner = expr.strip()[1:-1]
+        if inner.count("(") == inner.count(")"):
+            return f"({_c_to_python(inner)})"
+    expr = expr.replace("&&", " and ").replace("||", " or ").replace("/", "//")
+    expr = re.sub(r"!(\w+)", r"(not \1)", expr)
+    return re.sub(r"!(?!=)", " not ", expr).replace("true", "True").replace("false", "False")
+
+
+def _header_constants(hidden: int = 128, obs: int = 75) -> dict:
+    """The `constexpr int` and `constexpr bool` constants of
+    `csrc/ppo_grad.cuh` at the instantiation the build gives a model of
+    ``hidden`` units and ``obs`` inputs (its -DAQE_* defines), evaluated in
+    order (those that are not plain arithmetic are skipped)."""
     import os
-    import re
 
     path = os.path.join(os.path.dirname(tpf.__file__), "csrc", "ppo_grad.cuh")
-    consts = {}
-    for name, expr in re.findall(r"constexpr int (\w+) = ([^;]+);", open(path).read()):
+    consts = {f"AQE_{k}": v for k, v in tpf.library(hidden, obs, "f32")}
+    found = re.findall(r"constexpr (?:int|bool) (\w+) = ([^;]+);", open(path).read())
+    for name, expr in found:
         try:
-            consts[name] = eval(expr.replace("/", "//"), {"__builtins__": {}}, dict(consts))
+            consts[name] = int(eval(f"({_c_to_python(expr)})", {"__builtins__": {}}, dict(consts)))
         except (NameError, SyntaxError, TypeError):
             pass
     return consts
 
 
 def test_header_declares_the_mirrored_layouts():
-    """The pack offsets mirrored in `ops.ppo_fused_t` are the header's; the
-    (2, G, ACCS) partial layout that the reductions and B4's Adam step read
-    is the one they have always read (dW1 rows of 76, then dW2, dW3, b1, b2,
-    b3, 4 metrics); the flat output holds `split_out`'s leaves; the shared
-    memory fits a CTA."""
+    """What the wrappers mirror of the header, the weight pack's width,
+    depth and offsets, is the header's at every width and at narrow and
+    wide obs; each instantiation fits a CTA's shared memory, and the obs
+    that the staged layout does not hold go to the wide one (any obs width
+    runs); at the trainer's instantiation the (2, G, ACCS) partial layout
+    that the reductions and B4's Adam step read is the one they have always
+    read (dW1 rows of 76, then dW2, dW3, b1, b2, b3, 4 metrics)."""
+    wide = {(256, 180), (200, 600), (100, 300), (64, 450), (20, 1500)}
+    for hidden, obs in [(128, 75), (20, 75), (64, 60), (200, 75), (256, 160), (128, 90),
+                        (32, 15), *sorted(wide)]:
+        c = _header_constants(hidden, obs)
+        h, k1 = trf.kernel_width(hidden), tpf.kernel_depth(hidden, obs)
+        lay = trf.pack_offsets(h, k1)
+        for name in ("P_W1", "P_W2", "P_W3", "P_B1", "P_B2", "P_B3", "PACK"):
+            assert c[name] == lay[name], (hidden, obs, name)
+        assert (c["H"], c["K1"], c["OBS"], c["NA"], c["CHUNK"]) == (h, k1, obs, tpf.ACT,
+                                                                   tpf.CHUNK)
+        assert c["SMEM_FLOATS"] * 4 <= 232448, (hidden, obs)
+        assert c["WIDE"] == ((hidden, obs) in wide), (hidden, obs)
     c = _header_constants()
-    for name in ("P_W1", "P_W2", "P_W3", "P_B1", "P_B2", "P_B3", "PACK", "K1", "CHUNK"):
-        assert c[name] == getattr(tpf, name), name
-    assert (c["OBS"], c["H"], c["NA"]) == (tpf.OBS, tpf.HIDDEN, tpf.ACT)
     assert [c[k] for k in ("A_W1", "A_W2", "A_W3", "A_B1", "A_B2", "A_B3", "ACC", "ACCS")] == [
         0, 9728, 26112, 26624, 26752, 26880, 26884, 26888]
-    sizes = [math.prod(s) for s in tpf._leaf_shapes(128)]
-    assert c["O_ACTOR"] == sum(sizes[:6]) and c["O_CRITIC"] == sum(sizes[6:])
-    assert c["N_OUT"] == sum(sizes) + 3
-    assert c["SMEM_FLOATS"] * 4 <= 232448  # a CTA's shared memory on an H100
+    assert c["RESIDENT_W"] == 1 and c["NS"] == 1 and c["SMEM_FLOATS"] * 4 == 230480
+    assert c["WIDE"] == 0 and tpf.kernel_depth(128, 75) == 80
 
 
 def test_split_out_follows_the_leaf_order():
@@ -240,6 +284,12 @@ def test_split_out_follows_the_leaf_order():
     assert [tuple(g.shape) for g in grads] == tpf._leaf_shapes(128)
     assert torch.equal(torch.cat([g.reshape(-1) for g in grads]), out[:-3])
     assert (actor_sum.item(), critic_sum.item(), rmax.item()) == (53125.0, 53126.0, 53127.0)
+    # At another width and obs width: the model's own leaves, not the padded ones.
+    shapes = tpf._leaf_shapes(20, obs=60)
+    n = sum(math.prod(s) for s in shapes)
+    grads, actor_sum, _, rmax = tpf.split_out(torch.arange(n + 3.0), 20, 60)
+    assert [tuple(g.shape) for g in grads] == shapes
+    assert (actor_sum.item(), rmax.item()) == (n, n + 2)
 
 
 def test_entropy_constant_matches_the_gaussian_head():

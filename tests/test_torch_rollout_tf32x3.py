@@ -34,7 +34,7 @@ from torch_parity import n, one_torch_thread, port_env_config, t  # noqa: F401
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 B, P, STD = 16, 2, 0.1
-OBS, K1, H = trf.OBS, 80, trf.HIDDEN
+OBS, K1, H = trf.OBS, 80, 128  # the trainer's width, whose warp layout this mirrors
 
 
 def _lane_units(slots: int, width: int, n_tiles: int) -> list:

@@ -103,10 +103,10 @@ def test_train_loop_equals_sequential_steps():
 
 
 def test_make_train_step_refuses_what_is_not_ported():
-    """Only what is still to be ported is refused: bf16 products in a
-    kernel. Every other configuration builds, on the CPU at any width and
-    tile, randomization among them (ported since; it takes the row-major
-    branch and steps); a state of another model, and a model whose std
+    """Nothing the JAX package sends to a kernel is refused on the CPU any
+    more: bf16 products build and step on both branches (ported since, like
+    randomization, which takes the row-major branch and steps), at any
+    width and tile; a state of another model, and a model whose std
     disagrees with the config, are refused as in the JAX package."""
     env_cfg = tcfg.EnvConfig()
     tc = tcfg.TrainConfig(num_envs=B, rollout_steps=STEPS, network_size=HIDDEN,
@@ -127,11 +127,15 @@ def test_make_train_step_refuses_what_is_not_ported():
     robust_state, metrics = tppo.make_train_step(model, opt, robust, pcfg, tc)(robust_state)
     assert robust_state.update_i == 1
     assert all(torch.isfinite(v).all() for v in metrics.values())
-    for p, tcc in [(dataclasses.replace(pcfg, fused_compute="bf16"), tc),
-                   (dataclasses.replace(pcfg, fused_compute="bf16", fused_adam=True),
-                    dataclasses.replace(tc, fused_rollout=False))]:
-        with pytest.raises(NotImplementedError, match="the rest of B1 and B2"):
-            tppo.make_train_step(model, opt, env_cfg, p, tcc)
+    for p, tcc, branch in [(dataclasses.replace(pcfg, fused_compute="bf16"), tc, "fused_t"),
+                           (dataclasses.replace(pcfg, fused_compute="bf16", fused_adam=True),
+                            dataclasses.replace(tc, fused_rollout=False), "rowmajor")]:
+        assert tppo.train_branch(model, opt, env_cfg, p, tcc) == branch
+        m_b, o_b, s_b = tppo.ppo_init(0, env_cfg, p, tcc, device="cpu")
+        before = [x.detach().clone() for x in m_b.parameters()]
+        s_b, met_b = tppo.make_train_step(m_b, o_b, env_cfg, p, tcc)(s_b)
+        assert s_b.update_i == 1 and all(torch.isfinite(v).all() for v in met_b.values())
+        assert not all(torch.equal(a, b) for a, b in zip(before, m_b.parameters()))
     # bf16 products matter only inside a kernel: the autograd branch runs.
     tppo.make_train_step(model, opt, env_cfg,
                          dataclasses.replace(pcfg, fused_compute="bf16", fused_update=False),
