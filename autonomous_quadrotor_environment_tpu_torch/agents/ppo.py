@@ -38,8 +38,9 @@ Differences of form from the JAX package:
   the Adam step, which keeps the Adam step out of B4), a metric reduce,
   and the envs one rank rolls out, which the kernels' gates read.
 * The kernels take every configuration the JAX package sends them, bf16
-  products (``fused_compute``) among them, up to hidden width 256; on the
-  card a wider model is refused with its ROADMAP item (`train_branch`).
+  products (``fused_compute``) among them, up to hidden width 1024 (B1
+  above 256 and B2-B4 above 128 on the wide designs); on the card a wider
+  model is refused with its ROADMAP item (`train_branch`).
 """
 
 from __future__ import annotations
@@ -705,10 +706,11 @@ def train_branch(model: ActorCritic, opt: torch.optim.Optimizer, env_cfg: EnvCon
     ``num_envs`` when None; JAX ppo.py:584-594, :623), and ``reduced`` (a
     cross-rank gradient reduce) keeps the Adam step out of B4. The kernels
     take every configuration the JAX package sends them up to hidden width
-    256: f32 or bf16 products (``fused_compute``), any hist_t on the
-    row-major branch, any tile `update_t_tile` gives. For a model on the
-    card a wider one is refused (ROADMAP B, hidden widths above 256). The
-    CPU runs every shape through the kernels' plain versions."""
+    1024 (B1 above 256, B2-B4 above 128 on the wide designs): f32 or bf16
+    products (``fused_compute``), any hist_t on the row-major branch, any
+    tile `update_t_tile` gives. For a model on the card a wider one is refused
+    (ROADMAP B, hidden widths above 1024). The CPU runs every shape through
+    the kernels' plain versions."""
     if train_cfg.fused_rollout or ppo_cfg.fused_update:
         if float(model.action_std) != float(ppo_cfg.action_std):
             raise ValueError(
@@ -731,8 +733,8 @@ def train_branch(model: ActorCritic, opt: torch.optim.Optimizer, env_cfg: EnvCon
     if (next(model.parameters()).device.type == "cuda" and (fused_rollout or kernel_update)
             and not rf.kernel_width(model.hidden)):
         raise NotImplementedError(
-            f"the port's kernels take hidden widths up to {rf.WIDTHS[-1]}, not "
-            f"{model.hidden} (ROADMAP B, hidden widths above 256)"
+            f"the port's kernels take hidden widths up to {rf.WIDE_MAX}, not "
+            f"{model.hidden} (ROADMAP B, hidden widths above 1024)"
         )
     return "fused_t" if fused_t else "rowmajor"
 

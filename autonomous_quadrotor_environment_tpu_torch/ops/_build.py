@@ -43,6 +43,10 @@ SIGNATURES = {
     "rollout_fused": {
         "rollout_fused": [_P] * 4 + [_P] * 3 + [_I] * 3 + [_P, _F, _F, _I, _P],
     },
+    # the same, and the model's hidden width before the device
+    "rollout_wide": {
+        "rollout_wide": [_P] * 4 + [_P] * 3 + [_I] * 3 + [_P, _F, _F, _I, _I, _P],
+    },
     "ppo_fused_t": {"ppo_fused_t": [_P] * 6 + [_I] * 5 + [_F] * 5 + [_I] + [_I, _P]},
     "ppo_fused": {
         "ppo_fused": _ROWS + [_I, _P],
@@ -52,6 +56,11 @@ SIGNATURES = {
     # half_w, half_h, ground_z
     "render_nadir": {"render_nadir": [_P] * 4 + [_I] * 3 + [_F] * 8 + [_I, _P]},
 }
+# The wide gradient libraries take the narrow ones' arguments.
+SIGNATURES["ppo_wide_t"] = {"ppo_fused_t": SIGNATURES["ppo_fused_t"]["ppo_fused_t"]}
+SIGNATURES["ppo_wide"] = SIGNATURES["ppo_fused"]
+# Size queries that do not return an int.
+RESTYPES = {"ppo_grad_work_floats": ctypes.c_longlong}
 
 
 def nvcc_path() -> str:
@@ -105,6 +114,9 @@ def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
         fn = getattr(lib, entry)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    for entry, restype in RESTYPES.items():
+        if hasattr(lib, entry):
+            getattr(lib, entry).restype = restype
     lib.cuda_error_string.argtypes = [ctypes.c_int]
     lib.cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -3,8 +3,9 @@
 // the split of an f32 operand into two TF32 parts, the m16n8k8 TF32 tensor-
 // core product, the m16n8k16 bf16 product, asynchronous copies from global
 // to shared memory, the fragment views of operands (in shared memory, or in
-// global memory where the weights do not fit beside the rest) and a warp's
-// tile product in 3xTF32 or in bf16.
+// global memory where the weights do not fit beside the rest; one with a
+// row stride set at run time for the wide kernels) and a warp's tile
+// product in 3xTF32 or in bf16.
 
 #pragma once
 
@@ -77,6 +78,22 @@ __device__ __forceinline__ void cp_async_commit() {
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;" ::: "memory");
 }
+// Wait until at most N of the copying thread's committed groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// 16-byte reads (read-only global, or any) and writes.
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ void sts4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
 
 // The column swizzle of row `row` in a swizzled operand (X^T, H1, H2 and W2
 // of the gradient kernels; H1 and W2 of the rollout): it flips bits 2-4 of
@@ -106,6 +123,25 @@ struct RowsPlain {
   }
   __device__ __forceinline__ float2 pair(int ri, int k) const {
     return *reinterpret_cast<const float2*>(r + ri * LD + k);
+  }
+};
+
+// RowsPlain with a row stride known only at run time (a width-sized
+// operand of the wide kernels): with ld = 4 (mod 32) conflict-free.
+struct RowsPlainRt {
+  const float* b;
+  const float* r;
+  int ld;
+  __device__ __forceinline__ RowsPlainRt(const float* p, int ld_, int idx0) : ld(ld_) {
+    const int lane = threadIdx.x & 31;
+    b = p + (idx0 + (lane >> 2)) * ld + (lane & 3);
+    r = p + idx0 * ld;
+  }
+  __device__ __forceinline__ float at(int c, int q, int i) const {
+    return b[8 * c * ld + 8 * i + 4 * q];
+  }
+  __device__ __forceinline__ float2 pair(int ri, int k) const {
+    return *reinterpret_cast<const float2*>(r + ri * ld + k);
   }
 };
 

@@ -111,40 +111,11 @@ __global__ void __launch_bounds__(THREADS, 1) ppo_grad_rows_kernel(Params P) {
   write_partial(S, P.work, P.G, head, slice, w);
 }
 
-// The 12 parameter leaves and their two Adam moments, flax leaf order,
-// each laid out as the gradient's leaf in the flat output.
-struct AdamLeaves {
-  float* p[12];
-  float* m[12];
-  float* v[12];
-};
-
-struct AdamConsts {
-  float one_minus_b1, b2, one_minus_b2, neg_step_size, bc2_sqrt, eps;
-};
-
-// reduce_kernel's sums, with the Adam step applied to each finished gradient
-// entry of width hr instead of writing it out; the metrics go to
-// metrics[0..2].
+// reduce_kernel's sums with the Adam step on each finished gradient entry
+// of width hr (`ppo_common.cuh:reduce_entry_adam`).
 __global__ void reduce_adam_kernel(const float* __restrict__ work, float* __restrict__ metrics,
                                    int G, int hr, AdamLeaves L, AdamConsts a) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  const int n_grads = out_actor(hr) + out_critic(hr);
-  if (e >= n_grads + 3) return;
-  if (e >= n_grads) {
-    metrics[e - n_grads] = reduce_metric(work, G, e - n_grads);
-    return;
-  }
-  const Entry at = locate(e, hr);
-  const float g = sum_partials(work, G, at.head, at.src);
-  float* pp = L.p[at.leaf] + at.off;
-  float* mp = L.m[at.leaf] + at.off;
-  float* vp = L.v[at.leaf] + at.off;
-  const float m = *mp + a.one_minus_b1 * (g - *mp);
-  const float v = *vp * a.b2 + a.one_minus_b2 * (g * g);
-  *mp = m;
-  *vp = v;
-  *pp = *pp + a.neg_step_size * (m / (sqrtf(v) / a.bc2_sqrt + a.eps));
+  reduce_entry_adam(work, metrics, G, hr, layout(), L, a);
 }
 
 cudaError_t launch_grad(const Params& P, cudaStream_t s) {

@@ -8,9 +8,9 @@
 // differ only in how a chunk of rows reaches shared memory.
 //
 // One library per instantiation: the build (`ops/_build.py`) sets the
-// hidden width AQE_H (32, 64, 128 or 256; a narrower model runs zero-padded
-// on the next width up), the obs width AQE_OBS and the products' precision
-// AQE_BF16. Zero padding is exact: a padded unit has zero weights in and
+// hidden width AQE_H (32, 64 or 128; a narrower model runs zero-padded on
+// the next width up; a wider one runs on the wide design,
+// `ppo_grad_wide.cuh`), the obs width AQE_OBS and the products' precision AQE_BF16. Zero padding is exact: a padded unit has zero weights in and
 // out and a zero bias, so its activation is tanh(0) = 0 and its delta 0; it
 // adds exact zeros to every sum and its gradient entries are exactly 0. The
 // wrappers pad only the weight pack (a copy made for every launch anyway);
@@ -33,14 +33,13 @@
 //   chunks of CHUNK = 64 rows with stride G, in order.
 // * Weight-gradient slices (blockIdx.z): a CTA holds its dW2 and dW1 rows
 //   in registers for its whole walk, at most ACC_REGS floats a thread. Where
-//   H (H + K1) / 256 is more (H = 256, or H = 128 with obs wider than 80),
-//   NS = 2 or 4 CTAs share each walk, each recomputing every chunk's forward
-//   and backward and keeping the rows j of one slice of SL = H / NS units.
+//   H (H + K1) / 256 is more (H = 128 with obs wider than 80), NS = 2 CTAs
+//   share each walk, each recomputing every chunk's forward and backward and
+//   keeping the rows j of one slice of SL = H / NS units.
 // * Weights resident in shared memory where they fit beside the rest (H <=
 //   128 at obs <= 80): W1 (H x K1, rows padded to K1 + 4 floats), one copy
 //   of W2 (H x H, swizzled); the forward and the backward read the one W2
-//   through different fragment mappings. Otherwise (H = 256, or wider obs)
-//   the products read W1 and W2 from the weight pack in global memory
+//   through different fragment mappings. Otherwise (wider obs) the products read W1 and W2 from the weight pack in global memory
 //   through L1 and L2. W3 and the biases are always resident.
 // * Tensor cores: per chunk and head the forward X W1^T (K = K1, the obs
 //   zero-padded to a multiple of 16, or 32 at H = 32) and H1 W2^T, the data
@@ -77,16 +76,16 @@
 //   where the alignment allows; B3/B4: 4-byte copies, a row being OBS x 4
 //   bytes).
 // * Any obs width (WIDE): where X^T's two buffers do not fit beside the
-//   rest, or dW1 does not fit in registers with at most 4 slices (obs over
-//   160 at H = 256, over 288 at H = 128, over 352 at H = 64, over 384 at H
-//   = 32), X is not staged: the two products that read it (the first layer
+//   rest, or dW1 does not fit in registers with at most 2 slices (obs over
+//   288 at H = 128, over 352 at H = 64, over 384 at H = 32), X is not
+//   staged: the two products that read it (the first layer
 //   and dW1) read each entry from the batch in global memory through the
 //   chunk's source-row table (`XByRow`, `XByFeature`), and dW1's rows of the
 //   slice are summed in the CTA's own partial in the workspace, one
 //   8-column tile a warp at a time, read, added to and written back by the
-//   thread that owns the entry (so in a fixed order, as in registers). The
-//   slices then only hold dW2 (NS = 4 at H = 256, else 1). Nothing else
-//   changes; the trainer's instantiations are not WIDE.
+//   thread that owns the entry (so in a fixed order, as in registers). dW2
+//   then fits one CTA (NS = 1). Nothing else changes; the trainer's
+//   instantiations are not WIDE.
 // * A second small kernel sums the G partials of each gradient entry in the
 //   order 0..G-1 (no float atomics, so two launches give the same bits) and
 //   writes the gradients of the model's real width in the (out, in) layout
@@ -121,6 +120,7 @@
 #include <type_traits>
 
 #include "mma_tf32.cuh"
+#include "ppo_common.cuh"
 
 // The instantiation (set by the build; these defaults are the trainer's).
 #ifndef AQE_H
@@ -138,7 +138,6 @@ namespace ppo_grad {
 constexpr int H = AQE_H;
 constexpr int OBS = AQE_OBS;
 constexpr bool BF16 = AQE_BF16 != 0;
-constexpr int NA = 4;      // actor outputs; the critic's one output is padded to 4
 constexpr int CHUNK = 64;  // rows per chunk
 constexpr int THREADS = 256;
 constexpr int KQ = 16 + 16 * (H == 32);       // K1's quantum: dW1's warp tiling, bf16's depth
@@ -149,18 +148,17 @@ constexpr int SMEM_MAX = 232448;              // a CTA's shared memory on the H1
 // Shared memory (floats) of everything but X^T and the resident weights.
 constexpr int BASE_FLOATS = NA * (H + 4) + 2 * H + NA + 2 * 8 * CHUNK + 2 * CHUNK * H +
                             CHUNK * NA + 6 * THREADS + 4 * CHUNK;
-// The slices that keep dW2 and dW1 in ACC_REGS: 1, 2 or 4, the fewest.
-constexpr int NS_REG = (1 + (H * (H + K1) / THREADS > ACC_REGS) +
-                        2 * ((H / 2) * (H + K1) / THREADS > ACC_REGS));
+// The slices that keep dW2 and dW1 in ACC_REGS: 1, or 2 (where 2 do not
+// either, the layout is WIDE).
+constexpr int NS_REG = 1 + (H * (H + K1) / THREADS > ACC_REGS);
 // Obs too wide for that layout (X^T's two buffers in shared memory, dW1 in
 // registers): X is read from the batch in global memory instead of being
 // staged, and dW1 is summed in the CTA's partial in the workspace.
 constexpr bool WIDE = !((BASE_FLOATS + 2 * K1 * CHUNK) * 4 <= SMEM_MAX &&
                         (H / NS_REG) * (H + K1) / THREADS <= ACC_REGS &&
                         (H / NS_REG >= 64 || NS_REG == 1));
-// Weight-gradient slices: the fewest that keep the register accumulators
-// (dW2 alone where WIDE) in ACC_REGS.
-constexpr int NS = !WIDE ? NS_REG : (H * H / THREADS <= ACC_REGS ? 1 : 4);
+// Weight-gradient slices: NS_REG, or 1 where WIDE (dW2 alone in ACC_REGS).
+constexpr int NS = !WIDE ? NS_REG : 1;
 constexpr int SL = H / NS;                    // dW2 and dW1 rows of one slice
 
 // Packed weights of one head (floats), built by the wrapper.
@@ -181,7 +179,6 @@ constexpr int A_B1 = A_W3 + NA * H;
 constexpr int A_B2 = A_B1 + H;
 constexpr int A_B3 = A_B2 + H;
 constexpr int ACC = A_B3 + NA;             // 26,884 at H = 128, OBS = 75
-constexpr int NMET = 4;                    // actor sum, critic sum, ratio max, pad
 constexpr int ACCS = ACC + NMET;
 
 // Shared memory (floats); the resident weights last, where they fit.
@@ -226,19 +223,15 @@ constexpr int C_MT = C_TM / 16, C_NT = C_TN / 8;
 // The per-unit passes (back_out, the b1 sums): RS segments of the rows.
 constexpr int RS = THREADS / H, RROWS = CHUNK / RS;
 
-// Flat output at the model's real width hr: the 12 gradient leaves in flax
-// leaf order, (out, in) kernels and (out,) biases, then the 3 metrics.
-__host__ __device__ constexpr int out_actor(int hr) {
-  return OBS * hr + hr + hr * hr + hr + NA * hr + NA;
-}
-__host__ __device__ constexpr int out_critic(int hr) {
-  return OBS * hr + hr + hr * hr + hr + hr + 1;
-}
+// Flat output at the model's real width hr (`ppo_common.cuh`), and this
+// instantiation's partial layout.
 __host__ __device__ constexpr int out_floats(int hr) {
-  return out_actor(hr) + out_critic(hr) + 3;
+  return out_actor(OBS, hr) + out_critic(OBS, hr) + 3;
 }
+__host__ __device__ constexpr Layout layout() { return make_layout(H, OBS); }
 
-static_assert(H == 32 || H == 64 || H == 128 || H == 256, "the instantiated widths");
+static_assert(H == 32 || H == 64 || H == 128, "the instantiated widths");
+static_assert(layout().acc == ACC && layout().w2 == A_W2 && layout().b3 == A_B3, "partial layout");
 static_assert(ACC % 4 == 0 && PACK % 4 == 0 && ACCS % 4 == 0 && K1 % 16 == 0, "alignment");
 static_assert(S_X % 4 == 0 && S_AUX % 4 == 0 && S_H1 % 4 == 0 && S_H2 % 4 == 0 &&
               S_GO % 4 == 0 && S_W1 % 4 == 0 && S_W2 % 4 == 0, "float4 alignment");
@@ -250,12 +243,6 @@ static_assert(A_TM % 16 == 0 && A_PN % 8 == 0 && B_TM % 16 == 0 && B_PN % 8 == 0
               C_TM % 16 == 0 && C_TN % 8 == 0 && K1 % (8 * C_WN) == 0, "warp tilings");
 static_assert(CHUNK == 64 && THREADS == 256 && CHUNK * NA == THREADS && THREADS % H == 0,
               "tile mappings assume these");
-
-// The loss's constants: 1/std, the logprob's constant 4 (log std +
-// log(2 pi) / 2), the clip band's bounds and 1 / minibatch rows.
-struct LossConsts {
-  float inv_std, lp_const, lo, hi, inv_n;
-};
 
 // What a CTA carries over its walk in registers: its warp's tiles of the
 // running dW2 and dW1 rows of its slice as MMA accumulator fragments, and
@@ -276,15 +263,6 @@ using W1View = std::conditional_t<RESIDENT, RowsPlain<W1_LD>, RowsPlain<K1>>;
 using W2Fwd = std::conditional_t<RESIDENT, RowsSwz<H>, RowsPlain<H>>;
 using W2Bwd = std::conditional_t<RESIDENT, ColsSwz<H>, ColsPlain<H>>;
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
-__device__ __forceinline__ float4 lds4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ void sts4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
 // The batch's obs in global memory, for the WIDE reads: entry (r, f) of
 // the chunk's X is p[t * rs + f * fs + e], (t, e) row r's entries (r, CHUNK
 // + r) of the chunk's source-row table; 0 for f >= OBS and where t < 0
@@ -337,17 +315,6 @@ struct XByFeature {
 
 // x as a product's operand: rounded to bf16 in bf16 mode.
 __device__ __forceinline__ float opnd(float x) { return BF16 ? bf16r(x) : x; }
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
 
 // acc += A B over `depth` (a multiple of 16) in the instantiation's
 // precision: 3xTF32 or bf16.
@@ -428,32 +395,14 @@ __device__ __forceinline__ void loss_rows(const float* AUX, float* GO, int head,
   const bool live = AUX[7 * CHUNK + r] != 0.f;
   const float4 out = lds4(GO + r * NA);
   const float mean[NA] = {out.x, out.y, out.z, out.w};
-  float go[NA], row;
+  float aux[7];
+#pragma unroll
+  for (int i = 0; i < 7; ++i) aux[i] = AUX[i * CHUNK + r];
+  float go[NA], ratio;
+  const float row = loss_row(head, live, mean, aux, c, go, ratio);
   if (head == 0) {
-    const float old_lp = AUX[4 * CHUNK + r], adv = AUX[6 * CHUNK + r];
-    float z[NA], ssq = 0.f;
-#pragma unroll
-    for (int o = 0; o < NA; ++o) {
-      z[o] = (AUX[o * CHUNK + r] - mean[o]) * c.inv_std;
-      ssq = fmaf(z[o], z[o], ssq);
-    }
-    const float lp = -0.5f * ssq - c.lp_const;
-    const float ratio = expf(lp - old_lp);
-    const bool in_band = ratio > c.lo && ratio < c.hi;
-    const float surr1 = ratio * adv;
-    const float surr2 = fminf(fmaxf(ratio, c.lo), c.hi) * adv;
-    row = live ? -fminf(surr1, surr2) : 0.f;
-    const float g_ratio = -c.inv_n * adv * (surr1 <= surr2 ? 1.f : (in_band ? 1.f : 0.f));
-    const float g_lp = live ? g_ratio * ratio : 0.f;
-#pragma unroll
-    for (int o = 0; o < NA; ++o) go[o] = ((g_lp * z[o]) * c.inv_std) * (1.f - mean[o] * mean[o]);
-    const float m = warp_max(live ? ratio : 0.f);
+    const float m = warp_max(ratio);
     if ((r & 31) == 0) w.rmax = fmaxf(w.rmax, m);
-  } else {
-    const float verr = live ? mean[0] - AUX[5 * CHUNK + r] : 0.f;
-    go[0] = verr * c.inv_n;
-    go[1] = go[2] = go[3] = 0.f;
-    row = 0.5f * verr * verr;
   }
   sts4(GO + r * NA, make_float4(go[0], go[1], go[2], go[3]));
 #pragma unroll
@@ -737,87 +686,29 @@ __device__ __forceinline__ void write_partial(float* S, float* work, int G, int 
   }
 }
 
-// Where output entry e (< out_actor(hr) + out_critic(hr)) of the model's
-// real width hr lives: its head, its accumulator index in the padded
-// partial, its leaf (0..11, flax leaf order) and its offset in that leaf.
-struct Entry {
-  int head, src, leaf, off;
-};
-
-__device__ __forceinline__ Entry locate(int e, int hr) {
-  Entry r;
-  r.head = e < out_actor(hr) ? 0 : 1;
-  r.leaf = 6 * r.head;
-  int k = e - r.head * out_actor(hr);
-  if (k < OBS * hr) {
-    r.src = A_W1 + (k / OBS) * OBS_P + k % OBS;
-  } else if ((k -= OBS * hr) < hr) {
-    r.src = A_B1 + k;
-    r.leaf += 1;
-  } else if ((k -= hr) < hr * hr) {
-    r.src = A_W2 + (k / hr) * H + k % hr;
-    r.leaf += 2;
-  } else if ((k -= hr * hr) < hr) {
-    r.src = A_B2 + k;
-    r.leaf += 3;
-  } else {
-    k -= hr;
-    const int n_out = r.head == 0 ? NA : 1;
-    if (k < n_out * hr) {
-      r.src = A_W3 + (k / hr) * H + k % hr;
-      r.leaf += 4;
-    } else {
-      k -= n_out * hr;
-      r.src = A_B3 + k;
-      r.leaf += 5;
-    }
-  }
-  r.off = k;
-  return r;
-}
-
-// The sum of entry src over the G partials of one head, in the order 0..G-1.
-__device__ __forceinline__ float sum_partials(const float* __restrict__ work, int G, int head,
-                                              int src) {
-  float s = 0.f;
-  for (int c = 0; c < G; ++c) s += work[((size_t)head * G + c) * ACCS + src];
-  return s;
-}
-
-// Metric m (0 actor sum, 1 critic sum, 2 ratio max) over the partials.
-__device__ __forceinline__ float reduce_metric(const float* __restrict__ work, int G, int m) {
-  const int head = m == 1 ? 1 : 0;
-  float s = 0.f;
-  for (int c = 0; c < G; ++c) {
-    const float v = work[((size_t)head * G + c) * ACCS + ACC + m];
-    s = m == 2 ? fmaxf(s, v) : s + v;
-  }
-  return s;
-}
-
-// Sum the G partials of every output entry of width hr in the order
-// 0..G-1 and write the gradients in leaf order, then the metrics.
+// The reduction pass (`ppo_common.cuh:reduce_entry`).
 __global__ void reduce_kernel(const float* __restrict__ work, float* __restrict__ out, int G,
                               int hr) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  const int n_grads = out_actor(hr) + out_critic(hr);
-  if (e >= n_grads + 3) return;
-  if (e >= n_grads) {
-    out[e] = reduce_metric(work, G, e - n_grads);
-    return;
-  }
-  const Entry at = locate(e, hr);
-  out[e] = sum_partials(work, G, at.head, at.src);
+  reduce_entry(work, out, G, hr, layout());
 }
 
 }  // namespace ppo_grad
 
 extern "C" {
 
-// Sizes the wrappers allocate by: floats per head of the weight pack, of
-// one CTA's partial, and of the flat output at width hr.
-int ppo_grad_pack_floats() { return ppo_grad::PACK; }
-int ppo_grad_partial_floats() { return ppo_grad::ACCS; }
+// What the wrappers allocate by, for a model of hidden width hr (at most
+// H): floats per head of the weight pack; the chunk walkers per head G for
+// a minibatch of mb rows on `sms` SMs (at most one per chunk; with the NS
+// slice CTAs of each walk, the 2 G NS CTAs about fill the SMs); floats of
+// the workspace, the G partials of each head; floats of the flat output.
+int ppo_grad_pack_floats(int) { return ppo_grad::PACK; }
+int ppo_grad_walkers(int, int sms, int mb) {
+  using namespace ppo_grad;
+  const int per_sm = sms / (2 * NS), chunks = (mb + CHUNK - 1) / CHUNK;
+  const int g = per_sm < chunks ? per_sm : chunks;
+  return g > 1 ? g : 1;
+}
+long long ppo_grad_work_floats(int, int, int G) { return 2LL * G * ppo_grad::ACCS; }
 int ppo_grad_out_floats(int hr) { return ppo_grad::out_floats(hr); }
 
 // The instantiation: 0 H, 1 OBS, 2 bf16, 3 K1, 4 slices, 5 weights

@@ -17,9 +17,10 @@ fused branch is not taken. Over the minibatch formed by the row blocks
 On CUDA tensors each is one launch of a hand-written kernel in
 `csrc/ppo_fused.cu` (plus its fixed-order reduction pass, which carries the
 Adam step), built per instantiation (`ppo_fused_t.library`: hidden
-width, obs width, f32 or bf16 products); on CPU tensors each is its plain
-version: `ppo_grad_plain`, the
-rows gathered by block id and `torch.autograd` of `ppo_loss` on them, then
+width, obs width, f32 or bf16 products), or above 128 units in
+`csrc/ppo_wide.cu`; on CPU tensors each is its plain version:
+`ppo_grad_plain`, the rows gathered by block id and `torch.autograd` of
+`ppo_loss` on them, then
 for the Adam wrapper ``opt.step()``. `ppo_grad_adam_plain` is the Adam
 formula on copies of the state, the reference the card's kernel is held
 to. The minibatch is never gathered on the card.
@@ -42,7 +43,6 @@ import torch
 
 from .ppo_fused_t import (
     ACT,
-    CHUNK,
     _leaves,
     check_leaves,
     check_perm,
@@ -71,7 +71,7 @@ def pack_aux(actions: torch.Tensor, old_logprobs: torch.Tensor, returns: torch.T
 
 
 def supports(obs: torch.Tensor, leaves: list, tile: int) -> bool:
-    """What the kernels take: a hidden width up to 256, any obs width (any
+    """What the kernels take: a hidden width up to 1024, any obs width (any
     EnvConfig.hist_t * 15), 4 actions, and any tile that divides the rows.
     They compute under the fixed std they are given (the JAX gate sends a
     learned std to autograd), in f32 or bf16 products."""
@@ -188,7 +188,7 @@ def _check_rows(obs, aux, perm, tile, leaves):
     check_leaves(leaves, device, obs_dim)
     if not supports(obs, leaves, tile):
         raise ValueError(
-            "the ppo_fused kernels take hidden widths up to 256, 4 actions and a tile "
+            "the ppo_fused kernels take hidden widths up to 1024, 4 actions and a tile "
             "dividing the rows; got obs "
             f"{tuple(obs.shape)}, tile {tile}"
         )
@@ -206,7 +206,7 @@ def _launch(entry: str, leaves, obs, aux, perm, tile, action_std, clip_eps, comp
     n_blocks = perm.shape[0]
     mb = n_blocks * tile
     lib = load_lib("ppo_fused", hidden, obs_dim, compute_dtype)
-    pack, ctas, work = launch_buffers(lib, leaves, device, -(-mb // CHUNK))
+    pack, ctas, work = launch_buffers(lib, leaves, device, mb)
     size = 3 if extra else lib.ppo_grad_out_floats(hidden)
     out = torch.empty(size, dtype=torch.float32, device=device)
     with torch.cuda.device(device):

@@ -7,9 +7,12 @@ kernel's (T, features, B) output, the clipped-surrogate + value loss of
 
 * on CUDA tensors, as one launch of the hand-written kernel in
   `csrc/ppo_fused_t.cu` (plus its fixed-order reduction pass), built per
-  instantiation (`library`: a hidden width of 32, 64, 128 or 256 that a
+  instantiation (`library`: a hidden width of 32, 64 or 128 that a
   narrower model runs zero-padded on, the obs width, f32 or bf16
-  products; the rest of the layout the header derives);
+  products; the rest of the layout the header derives); a model wider than
+  128 (up to 1024) on `csrc/ppo_wide_t.cu` (`csrc/ppo_grad_wide.cuh`: tiled
+  products over super-chunks of rows, its width read at run time), built
+  per obs width and precision;
 * on CPU tensors, as `ppo_grad_t_plain`: the rows gathered by block id and
   `torch.autograd` of `ppo_loss` on them, which is also the reference the
   kernel is held against on the card.
@@ -36,6 +39,7 @@ from . import _build
 from .rollout_fused import (
     ACT,
     OBS,
+    WIDE_MAX,
     _check,
     kernel_width,
     transpose_leaves,
@@ -44,14 +48,29 @@ from .rollout_fused import (
 
 CHUNK = 64      # rows per chunk in the gradient kernels
 COMPUTE = ("f32", "bf16")
+# Widths from WIDE_FROM up run on the wide design (`csrc/ppo_grad_wide.cuh`),
+# narrower ones on the per-width instantiations (`csrc/ppo_grad.cuh`): at
+# 256 the wide design took B2 13.90 ms at bench.py's minibatch against the
+# 256 instantiation's 37.26 ms (`chip_smoke.py` kernel_options on an NVIDIA
+# H100 80GB HBM3 at 700 W; PERF.md, kernel table).
+WIDE_FROM = 129
 # The library's `ppo_grad_config` entries, in order.
 CONFIG = ("H", "OBS", "BF16", "K1", "NS", "resident", "smem_bytes", "wide")
 _LOG_2PI = math.log(2.0 * math.pi)
 
 
+def is_wide(hidden: int) -> bool:
+    """Whether a model of ``hidden`` units runs on the wide gradient
+    kernels."""
+    return hidden >= WIDE_FROM
+
+
 def kernel_depth(hidden: int, obs: int) -> int:
-    """The input depth K1 of the weight pack's W1 (`csrc/ppo_grad.cuh`):
-    ``obs`` padded to 16, or to 32 at the 32-wide instantiation."""
+    """The input depth K1 of the weight pack's W1: ``obs`` padded to 16, or
+    to 32 at the 32-wide instantiation (`csrc/ppo_grad.cuh`) and on the
+    wide kernels (`csrc/ppo_grad_wide.cuh`)."""
+    if is_wide(hidden):
+        return -(-obs // 32) * 32
     quantum = 32 if kernel_width(hidden) == 32 else 16
     return -(-obs // quantum) * quantum
 
@@ -62,7 +81,7 @@ def entropy_const(action_std: float) -> float:
 
 
 def supports(obs_t: torch.Tensor, leaves: list, tile: int) -> bool:
-    """What the kernel takes: a hidden width up to 256, any obs width, 4
+    """What the kernel takes: a hidden width up to 1024, any obs width, 4
     actions, and env tiles that divide B. It computes under the fixed std
     it is given (the JAX gate sends a learned std to autograd), in f32 or
     bf16 products."""
@@ -213,8 +232,8 @@ def check_leaves(leaves: list, device: torch.device, obs: int) -> None:
     hidden = leaves[0].shape[0]
     if not kernel_width(hidden):
         raise ValueError(
-            f"the gradient kernels take hidden widths up to 256, not {hidden} "
-            "(ROADMAP B, hidden widths above 256)"
+            f"the gradient kernels take hidden widths up to {WIDE_MAX}, not {hidden} "
+            "(ROADMAP B, hidden widths above 1024)"
         )
     for i, (w, shape) in enumerate(zip(leaves, _leaf_shapes(hidden, obs=obs))):
         if w.device != device or w.dtype != torch.float32 or w.numel() != math.prod(shape):
@@ -224,23 +243,36 @@ def check_leaves(leaves: list, device: torch.device, obs: int) -> None:
             )
 
 
+def source(name: str, hidden: int) -> str:
+    """The source of gradient kernel ``name`` ("ppo_fused_t" or
+    "ppo_fused") that a model of ``hidden`` units runs on: itself, or from
+    `WIDE_FROM` units its wide counterpart ("ppo_wide_t", "ppo_wide")."""
+    return name.replace("ppo_fused", "ppo_wide") if is_wide(hidden) else name
+
+
 def library(hidden: int, obs: int, compute_dtype: str) -> tuple:
     """The build's defines (`_build.build`) of the gradient libraries that a
     model of ``hidden`` units with ``obs`` inputs runs on in
-    ``compute_dtype``."""
+    ``compute_dtype``: precision, width and obs width; the wide libraries
+    take their width as an argument."""
     if compute_dtype not in COMPUTE:
         raise ValueError(f"compute_dtype must be one of {COMPUTE}, not {compute_dtype!r}")
-    return (("BF16", int(compute_dtype == "bf16")), ("H", kernel_width(hidden)), ("OBS", obs))
+    bf16 = ("BF16", int(compute_dtype == "bf16"))
+    if is_wide(hidden):
+        return bf16, ("OBS", obs)
+    return bf16, ("H", kernel_width(hidden)), ("OBS", obs)
 
 
 def load_lib(name: str, hidden: int, obs: int, compute_dtype: str):
-    """The library of gradient kernel source ``name`` at the instantiation
-    for this width, obs width and precision, its width and depth checked
-    against the weight pack's."""
+    """The library of gradient kernel ``name`` (its `source` for this
+    width) at the instantiation for this width, obs width and precision,
+    its width and depth checked against the weight pack's (a wide library
+    reports the widest it takes)."""
     defines = library(hidden, obs, compute_dtype)
-    lib = _build.load(name, defines)
+    lib = _build.load(source(name, hidden), defines)
     got = [lib.ppo_grad_config(i) for i in range(4)]
-    want = [kernel_width(hidden), obs, defines[0][1], kernel_depth(hidden, obs)]
+    width = WIDE_MAX if is_wide(hidden) else kernel_width(hidden)
+    want = [width, obs, defines[0][1], kernel_depth(hidden, obs)]
     if got != want:
         raise RuntimeError(f"the {name} library's instantiation {got} is not the wrapper's {want}")
     return lib
@@ -260,17 +292,18 @@ def check_perm(perm: torch.Tensor, device: torch.device) -> None:
     _check("perm", perm, (perm.shape[0],), device, torch.int32)
 
 
-def launch_buffers(lib, leaves: list, device: torch.device, n_chunks: int):
-    """What a gradient launch needs beside its inputs: the (2, PACK) weight
-    pack, the chunk walkers per head G (at most one per chunk; with the NS
-    slice CTAs of each walk, the 2 G NS CTAs about fill the SMs) and their
-    (2, G, partial) workspace."""
+def launch_buffers(lib, leaves: list, device: torch.device, mb: int):
+    """What a gradient launch over ``mb`` rows needs beside its inputs: the
+    (2, PACK) weight pack, the chunk walkers per head G and the workspace,
+    both as the library sizes them (`ppo_grad_walkers`,
+    `ppo_grad_work_floats`)."""
+    hidden = leaves[0].shape[0]
     pack = _pack(leaves)
-    if pack.shape[1] != lib.ppo_grad_pack_floats():
+    if pack.shape[1] != lib.ppo_grad_pack_floats(hidden):
         raise RuntimeError("weight pack size disagrees with the kernel's")
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    ctas = max(1, min(sms // (2 * lib.ppo_grad_config(4)), n_chunks))
-    work = torch.empty(2 * ctas * lib.ppo_grad_partial_floats(), dtype=torch.float32,
+    ctas = lib.ppo_grad_walkers(hidden, sms, mb)
+    work = torch.empty(lib.ppo_grad_work_floats(hidden, mb, ctas), dtype=torch.float32,
                        device=device)
     return pack, ctas, work
 
@@ -327,7 +360,7 @@ def _launch(leaves, obs_t, aux_t, perm, tile, action_std, clip_eps, compute_dtyp
     n_blocks = perm.shape[0]
     mb = n_blocks * tile
     lib = load_lib("ppo_fused_t", hidden, obs_dim, compute_dtype)
-    pack, ctas, work = launch_buffers(lib, leaves, device, -(-mb // CHUNK))
+    pack, ctas, work = launch_buffers(lib, leaves, device, mb)
     out = torch.empty(lib.ppo_grad_out_floats(hidden), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -367,7 +400,7 @@ def fused_ppo_grad_t(model_or_leaves, obs_t: torch.Tensor, aux_t: torch.Tensor,
     leaves = _leaves(model_or_leaves)
     if not supports(obs_t, leaves, tile):
         raise ValueError(
-            "the ppo_fused_t kernel takes hidden widths up to 256, 4 actions and a tile "
+            "the ppo_fused_t kernel takes hidden widths up to 1024, 4 actions and a tile "
             "dividing B; got leaves "
             f"{[tuple(l.shape) for l in leaves[:1]]}, obs {tuple(obs_t.shape)}, tile {tile}"
         )

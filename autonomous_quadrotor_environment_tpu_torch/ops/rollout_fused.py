@@ -11,7 +11,10 @@ auto-reset -- for B envs over T steps:
   inside the loop and the critic over the stored observations after it.
   The kernel is built per hidden width in `WIDTHS`; a model of any width
   up to 256 runs on the next one up, its weights zero-padded
-  (`weight_pack`), which changes no output;
+  (`weight_pack`), which changes no output. Wider models, up to
+  `WIDE_MAX`, run on `csrc/rollout_wide.cu` (the weights streamed through
+  shared memory), which reads its width at run time and takes any
+  multiple of `WIDE_STEP`: a model runs zero-padded on the next one;
 * on CPU tensors, as `rollout_plain`, a Python loop of exactly the per-step
   body below (the counterpart of the JAX package's `rollout_twin`), which
   is also the reference the kernel is held against on the card.
@@ -45,7 +48,14 @@ from . import _build
 ROWS = 128
 OBS = 75
 MISC = 16
-WIDTHS = (32, 64, 128, 256)  # the hidden widths the kernels are built for
+WIDTHS = (32, 64, 128, 256)  # the hidden widths the narrow kernels are built for
+# The wide rollout (`csrc/rollout_wide.cu`) takes widths from WIDE_FROM to
+# WIDE_MAX, padded to a multiple of WIDE_STEP, as the wide gradient kernels
+# do (from `ppo_fused_t.WIDE_FROM`). At 256 the 256 instantiation stays: it
+# took 25.02 ms at bench.py's shape against the wide design's 33.32 ms
+# (`chip_smoke.py` kernel_options on an NVIDIA H100 80GB HBM3 at 700 W).
+WIDE_FROM, WIDE_STEP, WIDE_MAX = WIDTHS[-1] + 1, 128, 1024
+WIDE_K1 = -(-OBS // 32) * 32  # the wide rollout's input depth (96)
 ACT = 4
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -569,17 +579,31 @@ def _leaf_shapes(hidden: int) -> list[tuple]:
     ]
 
 
+def is_wide(hidden: int) -> bool:
+    """Whether a model of ``hidden`` units runs on the wide kernels."""
+    return hidden >= WIDE_FROM
+
+
 def kernel_width(hidden: int) -> int:
-    """The instantiated width a model of ``hidden`` units runs on: the
-    smallest of `WIDTHS` that holds it; 0 above 256 (ROADMAP B, hidden widths
-    above 256)."""
-    return next((w for w in WIDTHS if hidden <= w), 0)
+    """The width a model of ``hidden`` units runs on: the smallest of
+    `WIDTHS` that holds it, or on the wide rollout ``hidden`` rounded up to
+    `WIDE_STEP` (either is the wide gradient kernels' width too); 0 above
+    `WIDE_MAX` (ROADMAP B, hidden widths above 1024)."""
+    if not is_wide(hidden):
+        return next(w for w in WIDTHS if hidden <= w)
+    return -(-hidden // WIDE_STEP) * WIDE_STEP if hidden <= WIDE_MAX else 0
+
+
+def source(hidden: int) -> str:
+    """The kernel source a model of ``hidden`` units runs on."""
+    return "rollout_wide" if is_wide(hidden) else "rollout_fused"
 
 
 def library(hidden: int) -> tuple:
-    """The build's defines (`_build.build`) of the rollout library that a
-    model of ``hidden`` units runs on."""
-    return (("H", kernel_width(hidden)),)
+    """The build's defines (`_build.build`) of the `source` library that a
+    model of ``hidden`` units runs on: one per narrow width, none for the
+    wide library, which serves every wide width."""
+    return () if is_wide(hidden) else (("H", kernel_width(hidden)),)
 
 
 def pack_offsets(width: int, k1: int) -> dict:
@@ -642,17 +666,20 @@ def _launch(s0, noise, pool, wT, C, action_std):
     hidden = wT[0].shape[0]
     width = kernel_width(hidden)
     if not width:
-        raise ValueError(f"the rollout kernel takes hidden widths up to {WIDTHS[-1]}, not "
-                         f"{hidden} (ROADMAP B, hidden widths above 256)")
+        raise ValueError(f"the rollout kernel takes hidden widths up to {WIDE_MAX}, not "
+                         f"{hidden} (ROADMAP B, hidden widths above 1024)")
     for i, (w, shape) in enumerate(zip(wT, _leaf_shapes(hidden))):
         if w.device != device or w.dtype != torch.float32 or tuple(w.shape) != shape:
             raise ValueError(
                 f"leaf {i}: want float32 {shape} on {device}, "
                 f"got {w.dtype} {tuple(w.shape)} on {w.device}"
             )
-    lib = _build.load("rollout_fused", library(hidden))
-    pack = weight_pack(wT, width, 80)
-    if pack.shape[1] != lib.rollout_fused_pack_floats():
+    name = source(hidden)
+    lib = _build.load(name, library(hidden))
+    wide = is_wide(hidden)
+    pack = weight_pack(wT, width, WIDE_K1 if wide else 80)
+    want = lib.rollout_wide_pack_floats(hidden) if wide else lib.rollout_fused_pack_floats()
+    if pack.shape[1] != want:
         raise RuntimeError("weight pack size disagrees with the kernel's")
 
     obs = torch.empty(steps, OBS, b, dtype=torch.float32, device=device)
@@ -661,16 +688,17 @@ def _launch(s0, noise, pool, wT, C, action_std):
     consts = _consts(C)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.rollout_fused(
-            s0.data_ptr(), noise.data_ptr(), pool.data_ptr(), pack.data_ptr(),
-            obs.data_ptr(), misc.data_ptr(), s_final.data_ptr(),
-            b, steps, p_size, ctypes.addressof(consts),
-            action_std, math.log(action_std) + 0.5 * _LOG_2PI,
-            device.index, stream,
-        )
+        args = (s0.data_ptr(), noise.data_ptr(), pool.data_ptr(), pack.data_ptr(),
+                obs.data_ptr(), misc.data_ptr(), s_final.data_ptr(),
+                b, steps, p_size, ctypes.addressof(consts),
+                action_std, math.log(action_std) + 0.5 * _LOG_2PI)
+        if wide:
+            err = lib.rollout_wide(*args, hidden, device.index, stream)
+        else:
+            err = lib.rollout_fused(*args, device.index, stream)
     if err != 0:
         msg = lib.cuda_error_string(err).decode()
-        raise RuntimeError(f"rollout_fused kernel launch failed: error {err} ({msg})")
+        raise RuntimeError(f"{name} kernel launch failed: error {err} ({msg})")
     fused_rollout.launches += 1
     return s_final, obs, misc
 

@@ -10,7 +10,7 @@ It imports nothing of JAX. Each phase prints one flushed JSON line:
 1. build: nvcc builds the four kernel sources, `ops/csrc/rollout_fused.cu`,
    `ops/csrc/ppo_fused_t.cu`, `ops/csrc/ppo_fused.cu` and
    `ops/csrc/render_nadir.cu`, at every instantiation the phases run
-   (`LIBRARIES`: hidden width, obs width, f32 or bf16 products), all in
+   (`libraries()`: hidden width, obs width, f32 or bf16 products), all in
    parallel; ptxas's registers and spills, and each library's shared
    memory.
 2. kernel_vs_plain: the rollout kernel against its plain PyTorch version on
@@ -121,8 +121,9 @@ It imports nothing of JAX. Each phase prints one flushed JSON line:
    package's CPU norm (`CLASSICAL_REF`, printed by `python
    scripts/classical_reference.py`) but for the episodes the JAX package's
    own compilations disagree on (`CLASSICAL_UNHELD`); each leg's seconds.
-21. control_graph_vs_eager: `rollout_batch` at the trainer's defaults
-   (1024 x 128; calm and robust, reset pool 0 and 4) and `_fly` at 256
+21. control_graph_vs_eager: `rollout_batch` at the trainer's envs for
+   GRAPH_T steps (1024 x 32; calm and robust, reset pool 0 and 4, some 120
+   episode ends each) and `_fly` at 256
    episodes (calm and windy) replayed from their CUDA graphs
    (`utils.graphs`) and run eagerly, from the same generator seed: every
    output bit-equal; a warm call's ms both ways; a replaced parameter
@@ -186,7 +187,13 @@ It imports nothing of JAX. Each phase prints one flushed JSON line:
    its ms and each kernel's time and bounds; counted row-major steps at the
    trainer's envs with 16-step rollouts (obs 60 with B3 and B4, hidden 256
    and bf16 with B4, bf16 with B3); and learn_bf16, the learn phase with
-   fused_compute="bf16" to the same bar by update 600.
+   fused_compute="bf16" to the same bar by update 600. The wide designs
+   (B1 above 256 units, B2-B4 above 128) the same way at 512, 1024 and
+   zero-padded 300 and 700, at 512 with wide obs and in bf16; in the
+   counted fully fused step at hidden 512 (B1 held to its plain version at
+   8192 x 256 at the slice phase's gates, B2 at the bench minibatch) and
+   the counted row-major steps at hidden 512 with B4 and 1024 with B3
+   (each held and timed on its step's 16,384-row batch).
 
 The step loops of the trainer's rollout (`rollout_batch`), its eval
 (`_fly`), the landing interval and the classical, mission (the hybrid one
@@ -275,24 +282,39 @@ RENDER_BATCHES = (100, 4096)  # the eval's batch, and a large one
 # waves, 7 for the checker value, 2+24 for the board and border masks, 12
 # for the ground wave, 4 for the board color, 3x9 for the channels.
 RENDER_OPS_PER_PIXEL = 128
-# One nvcc per source and instantiation, all started together: the
-# trainer's (hidden 128, obs 75, f32), then those of the kernel_options
-# phase (B1 at widths 32, 64 and 256; B2 at 32, 64, 256, in bf16 and with
-# the wide obs 180 at 256; B3/B4 at 32, at obs 60, at 256, in bf16 and with
-# the wide obs 180 at 256 and 300 at 128).
-LIBRARIES = (
-    ("rollout_fused", rf.library(128)), ("ppo_fused_t", pf.library(128, 75, "f32")),
-    ("ppo_fused", pf.library(128, 75, "f32")), ("render_nadir", ()),
-    ("rollout_fused", rf.library(32)), ("rollout_fused", rf.library(64)),
-    ("rollout_fused", rf.library(256)),
-    ("ppo_fused_t", pf.library(32, 75, "f32")), ("ppo_fused_t", pf.library(64, 75, "f32")),
-    ("ppo_fused_t", pf.library(256, 75, "f32")), ("ppo_fused_t", pf.library(128, 75, "bf16")),
-    ("ppo_fused_t", pf.library(256, 180, "f32")),
-    ("ppo_fused", pf.library(32, 75, "f32")),
-    ("ppo_fused", pf.library(128, 60, "f32")), ("ppo_fused", pf.library(256, 75, "f32")),
-    ("ppo_fused", pf.library(128, 75, "bf16")), ("ppo_fused", pf.library(256, 180, "f32")),
-    ("ppo_fused", pf.library(128, 300, "f32")),
-)
+
+
+def _lib(name: str, hidden: int, obs: int = 75, compute: str = "f32") -> tuple:
+    """The (source, defines) of the library that kernel ``name``
+    ("rollout_fused", "ppo_fused_t" or "ppo_fused") runs on at this width,
+    obs width and precision."""
+    if name == "rollout_fused":
+        return rf.source(hidden), rf.library(hidden)
+    return pf.source(name, hidden), pf.library(hidden, obs, compute)
+
+
+def libraries() -> tuple:
+    """The libraries that phase_build builds, one nvcc each, all started
+    together: the trainer's (hidden 128, obs 75, f32), then those of the
+    kernel_options phase (B1 at widths 32, 64 and 256; B2 at 32, 64 and in
+    bf16; B3/B4 at 32, at obs 60, in bf16 and with the wide obs 300 at 128),
+    then the wide designs, whose width is an argument (B1; B2 at obs 75 in
+    f32 and bf16 and at obs 180; B3/B4 at obs 75, 150 and 180). A function,
+    so that importing this script asks nothing of the package
+    (`scripts/kernel_turns.py` imports it beside older checkouts)."""
+    return (
+        _lib("rollout_fused", 128), _lib("ppo_fused_t", 128), _lib("ppo_fused", 128),
+        ("render_nadir", ()),
+        _lib("rollout_fused", 32), _lib("rollout_fused", 64), _lib("rollout_fused", 256),
+        _lib("ppo_fused_t", 32), _lib("ppo_fused_t", 64), _lib("ppo_fused_t", 128, compute="bf16"),
+        _lib("ppo_fused", 32), _lib("ppo_fused", 128, 60), _lib("ppo_fused", 128, compute="bf16"),
+        _lib("ppo_fused", 128, 300),
+        _lib("rollout_fused", 512), _lib("ppo_fused_t", 512), _lib("ppo_fused_t", 512, compute="bf16"),
+        _lib("ppo_fused_t", 512, 180), _lib("ppo_fused", 512), _lib("ppo_fused", 512, 150),
+        _lib("ppo_fused", 512, 180),
+    )
+
+
 _CSRC = "autonomous_quadrotor_environment_tpu_torch/ops/csrc/"
 _TPU = "autonomous_quadrotor_environment_tpu/ops/"
 KERNELS = {
@@ -301,6 +323,12 @@ KERNELS = {
     "ppo_fused": (_CSRC + "ppo_fused.cu", _TPU + "ppo_fused.py:331"),
     "ppo_fused_adam": (_CSRC + "ppo_fused.cu", _TPU + "ppo_fused.py:452"),
     "render_nadir": (_CSRC + "render_nadir.cu", _TPU + "render_kernel.py:143"),
+    # the wide designs of B1 (above 256 units) and B2-B4 (above 128), on
+    # the same wrappers and counters as the narrow ones
+    "rollout_wide": (_CSRC + "rollout_wide.cu", _TPU + "rollout_fused.py:624"),
+    "ppo_wide_t": (_CSRC + "ppo_wide_t.cu", _TPU + "ppo_fused_t.py:211"),
+    "ppo_wide": (_CSRC + "ppo_wide.cu", _TPU + "ppo_fused.py:331"),
+    "ppo_wide_adam": (_CSRC + "ppo_wide.cu", _TPU + "ppo_fused.py:452"),
 }
 # Each kernel's wrapper, whose `.launches` counts its launches.
 COUNTERS = {
@@ -462,10 +490,11 @@ def _ptxas(name: str, defines: tuple, info: dict) -> dict:
 def phase_build() -> dict:
     """One nvcc per kernel source and instantiation, all started together."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
-        infos = list(pool.map(lambda lib: _build.build(*lib), LIBRARIES))
+    libs = libraries()
+    with ThreadPoolExecutor(len(libs)) as pool:
+        infos = list(pool.map(lambda lib: _build.build(*lib), libs))
     kernels = {}
-    for (name, defines), info in zip(LIBRARIES, infos):
+    for (name, defines), info in zip(libs, infos):
         tag = "".join(f"-{k.lower()}{v}" for k, v in defines)
         kernels[name + tag] = _ptxas(name, defines, info)
     out = {"phase": "build", "seconds": time.perf_counter() - t0, "kernels": kernels}
@@ -1365,8 +1394,9 @@ def phase_learn(phase: str = "learn", first_eval: int = 0, **flags) -> dict:
 
 KO_ROLLOUT = dict(B=1024, T=32, P=4)   # B1's comparisons at each new width
 # Each instantiated width, and widths 16 and 200 that run zero-padded on
-# the 32- and 256-wide instantiations.
-KO_WIDTHS = (32, 64, 256, 16, 200)
+# the 32- and 256-wide instantiations; then the wide design at 512 and 1024
+# and at 300 and 700, which run zero-padded on 384 and 768.
+KO_WIDTHS = (32, 64, 256, 16, 200, 512, 1024, 300, 700)
 # The Euler-rate rows' extra tolerance in B1's comparisons (`compare`): 16
 # ulps of an angle near pi (2^-22 each) over dt = 0.01, 3.8e-4. Earlier
 # runs on an H100 80GB HBM3 at 700 W saw rate errors of 2.3e-4 to 3.1e-4
@@ -1374,23 +1404,29 @@ KO_WIDTHS = (32, 64, 256, 16, 200)
 RATE_ATOL = 16 * 2.0 ** -22 / EnvConfig().dt
 # B2's cases on seeded transposed data (T, B): (tile, hidden, obs); tiles
 # 8, 24 and 18 (4-byte copies: B and the tile are not multiples of 4) at
-# hidden 128, at tile 128 hidden 32 and 256, 16 and 200 zero-padded on 32
-# and 256, and 200 with the wide obs 180 (read in place, dW1 summed in the
-# workspace).
+# hidden 128, at tile 128 hidden 32 and 16 (zero-padded on 32), then on the
+# wide design 256, 200 (on 256), 200 with obs 180, 512, 1024, 300 (on 384)
+# and 512 with obs 180.
 KO_B2 = ((8, 1536, 8, 128, 75), (8, 1536, 24, 128, 75), (8, 1026, 18, 128, 75),
          (8, 1536, 128, 32, 75), (8, 1536, 128, 256, 75), (8, 1536, 128, 16, 75),
-         (8, 1536, 128, 200, 75), (8, 1536, 128, 200, 180))
+         (8, 1536, 128, 200, 75), (8, 1536, 128, 200, 180), (8, 1536, 128, 512, 75),
+         (8, 1536, 128, 1024, 75), (8, 1536, 128, 300, 75), (8, 1536, 128, 512, 180))
+# B2's bf16 cases: (hidden, obs), the narrow trainer's width and the wide 512.
+KO_B2_BF16 = ((128, 75), (512, 75))
 # B3/B4's cases on seeded row-major rows: (obs, hidden, compute); obs 60,
-# widths 256, 16 and 200 (zero-padded), bf16, and the wide obs 180 at 200
-# (on the 256-wide instantiation, 4 slices) and 300 at 100 (128-wide, 1).
+# bf16, width 16 (zero-padded on 32) and obs 300 at 100 (on the 128-wide
+# instantiation, read in place); on the wide design 256, 200, obs 180 at
+# 200, 512, 1024 and obs 150 at 512.
 KO_ROWMAJOR_GRADS = ((60, 128, "f32"), (75, 256, "f32"), (75, 128, "bf16"), (75, 16, "f32"),
-                     (75, 200, "f32"), (180, 200, "f32"), (300, 100, "f32"))
+                     (75, 200, "f32"), (180, 200, "f32"), (300, 100, "f32"),
+                     (75, 512, "f32"), (75, 1024, "f32"), (150, 512, "f32"))
 KO_B2_BLOCKS = 200  # a shuffled subset: chunks gather blocks, the last one ragged
 KO_ROWS = 7680      # B3/B4's seeded row-major rows, tile 40 (chunks span blocks)
 KO_TILE, KO_ROW_BLOCKS = 40, 29
 KO_BF16_TOL = 1e-3  # bf16 cases: leaves within this relative Frobenius error
 # The warm fully fused steps at bench.py's shape: (name, hidden, compute).
-KO_STEPS = (("hidden64", 64, "f32"), ("hidden256", 256, "f32"), ("bf16", 128, "bf16"))
+KO_STEPS = (("hidden64", 64, "f32"), ("hidden256", 256, "f32"), ("bf16", 128, "bf16"),
+            ("hidden512", 512, "f32"))
 # The row-major steps, counted, at the trainer's envs and full batch but 16
 # steps a rollout (a 128-step rollout's graph capture took 6-8 s a case on
 # the H100):
@@ -1399,7 +1435,8 @@ KO_ROWMAJOR_T = 16
 KO_ROWMAJOR = (("obs60_b3", 4, 128, "f32", False), ("obs60_b4", 4, 128, "f32", True),
                ("hidden256_b4", 5, 256, "f32", True), ("bf16_b4", 5, 128, "bf16", True),
                ("bf16_b3", 5, 128, "bf16", False), ("hidden16_b4", 5, 16, "f32", True),
-               ("hidden200_obs180_b4", 12, 200, "f32", True))
+               ("hidden200_obs180_b4", 12, 200, "f32", True), ("hidden512_b4", 5, 512, "f32", True),
+               ("hidden1024_b3", 5, 1024, "f32", False))
 
 
 def _seeded_t(steps: int, b: int, seed: int, obs_dim: int = pf.OBS):
@@ -1441,7 +1478,8 @@ def _grad_row(kernel: str, model, compute: str, cmp: dict, ms: float, plain_ms: 
     source = "ppo_fused_t" if kernel == "ppo_fused_t" else "ppo_fused"
     lib = pf.load_lib(source, model.hidden, obs_dim, compute)
     return {
-        "kernel": kernel, "hidden": model.hidden, "obs": obs_dim, "compute": compute,
+        "kernel": kernel, "source": pf.source(source, model.hidden), "hidden": model.hidden,
+        "obs": obs_dim, "compute": compute,
         "instantiation": pf.instantiation(lib),
         "compare": cmp, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by,
@@ -1449,93 +1487,113 @@ def _grad_row(kernel: str, model, compute: str, cmp: dict, ms: float, plain_ms: 
     }
 
 
-def _ko_rollouts() -> list:
-    """B1 at each new width against its plain version (1e-4 over 32 steps,
+def _ko_rollout(hidden: int) -> dict:
+    """B1 at width ``hidden`` against its plain version (1e-4 over 32 steps,
     default and tight bounding box, the seeds of kernel_vs_plain; the
     Euler-rate rows within RATE_ATOL more, see `compare`), with both times
     and the bound."""
-    rows = []
     b, t, p = KO_ROLLOUT["B"], KO_ROLLOUT["T"], KO_ROLLOUT["P"]
-    for hidden in KO_WIDTHS:
-        runs = []
-        for bb_scale in (1.0, 0.15):
-            cfg = EnvConfig(bb_scale=bb_scale)
-            model = _model(hidden, 11)
-            gen = torch.Generator(device=DEVICE).manual_seed(12)
-            states = hover.reset(gen, cfg, n=b)
-            inputs, out_k, out_p = kernel_and_plain(cfg, model, states, gen, steps=t,
-                                                    pool_size=p)
-            res = compare(out_k, out_p, atol=1e-4, rtol=1e-4, rate_atol=RATE_ATOL)
-            res["bb_scale"] = bb_scale
-            runs.append(res)
-        s0, noise, pool, wT = inputs
-        ms = time_cuda(lambda: rf.fused_rollout(s0, noise, pool, wT, cfg, ACTION_STD), 1, 5)
-        plain_ms = time_cuda(lambda: rf.rollout_plain(s0, noise, pool, wT, rf._scalars(cfg),
-                                                      ACTION_STD), 0, 1)
-        bound_ms, bound_by, _, _ = bound(b, t, p, hidden)
-        rows.append({"kernel": "rollout_fused", "hidden": hidden, "B": b, "T": t,
-                     "runs": runs, "max_abs_err": max(r["max_abs_err"] for r in runs),
-                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "tc_bound_ms": rollout_tc_bound(b, t, hidden)})
+    runs = []
+    for bb_scale in (1.0, 0.15):
+        cfg = EnvConfig(bb_scale=bb_scale)
+        model = _model(hidden, 11)
+        gen = torch.Generator(device=DEVICE).manual_seed(12)
+        states = hover.reset(gen, cfg, n=b)
+        inputs, out_k, out_p = kernel_and_plain(cfg, model, states, gen, steps=t, pool_size=p)
+        res = compare(out_k, out_p, atol=1e-4, rtol=1e-4, rate_atol=RATE_ATOL)
+        res["bb_scale"] = bb_scale
+        runs.append(res)
+    s0, noise, pool, wT = inputs
+    ms = time_cuda(lambda: rf.fused_rollout(s0, noise, pool, wT, cfg, ACTION_STD), 1, 5)
+    plain_ms = time_cuda(lambda: rf.rollout_plain(s0, noise, pool, wT, rf._scalars(cfg),
+                                                  ACTION_STD), 0, 1)
+    bound_ms, bound_by, _, _ = bound(b, t, p, hidden)
+    return {"kernel": "rollout_fused", "source": rf.source(hidden), "hidden": hidden,
+            "B": b, "T": t, "runs": runs, "max_abs_err": max(r["max_abs_err"] for r in runs),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "tc_bound_ms": rollout_tc_bound(b, t, hidden)}
+
+
+def _ko_rollouts() -> list:
+    """B1 at each of KO_WIDTHS."""
+    return [_ko_rollout(hidden) for hidden in KO_WIDTHS]
+
+
+def _ko_b2(steps: int, b: int, tile: int, hidden: int, obs_dim: int, compute: str) -> dict:
+    """B2 at one instantiation on seeded transposed rows against its plain
+    version (f32 at the old gates; bf16 leaves within KO_BF16_TOL), with
+    times."""
+    obs, aux, g = _seeded_t(steps, b, 41, obs_dim)
+    model = _model(hidden, 42, obs_dim)
+    n_blocks = min(KO_B2_BLOCKS, steps * b // tile)
+    blocks = torch.randperm(steps * b // tile, generator=g, device=DEVICE)[:n_blocks]
+    blocks = blocks.to(torch.int32)
+    tol = KO_BF16_TOL if compute == "bf16" else 1e-4
+    cmp = grad_compare(model, obs, aux, blocks, tile, phase="kernel_options",
+                       compute=compute, leaf_tol=tol)
+    kw = dict(tile=tile, compute_dtype=compute, **ROW_KW)
+    ms = time_cuda(lambda: pf.fused_ppo_grad_t(model, obs, aux, blocks, **kw), 2, 10)
+    plain_ms = time_cuda(lambda: pf.ppo_grad_t_plain(model, obs, aux, blocks, **kw), 1, 3)
+    row = _grad_row("ppo_fused_t", model, compute, cmp, ms, plain_ms, obs_dim, n_blocks)
+    row.update(T=steps, B=b, tile=tile)
+    return row
+
+
+def _ko_rowmajor_grads(obs_dim: int, hidden: int, compute: str) -> list:
+    """B3 and B4 at one instantiation on seeded row-major rows against their
+    plain versions, B4 from a warmed Adam state and from an empty one (the
+    wide design with no sign flip from the warmed one), with times."""
+    obs, aux, g = _seeded_rows(KO_ROWS, obs_dim, 43)
+    model = _model(hidden, 44, obs_dim)
+    perm = torch.randperm(KO_ROWS // KO_TILE, generator=g, device=DEVICE).to(torch.int32)
+    blocks = perm[:KO_ROW_BLOCKS]
+    tol = KO_BF16_TOL if compute == "bf16" else 1e-4
+    cmp = grad_compare(model, obs, aux, blocks, KO_TILE, pr.fused_ppo_grad,
+                       pr.ppo_grad_plain, "kernel_options", compute, tol)
+    warm = [perm[KO_ROW_BLOCKS * (i + 1): KO_ROW_BLOCKS * (i + 2)] for i in range(3)]
+    adam_warm = adam_compare(copy.deepcopy(model), obs, aux, blocks, KO_TILE, warm,
+                             compute, tol, "kernel_options")
+    adam_empty = adam_compare(copy.deepcopy(model), obs, aux, blocks, KO_TILE, [],
+                              compute, tol, "kernel_options")
+    if pf.is_wide(hidden) and adam_warm["sign_flips"]:
+        raise AssertionError(f"B4 at hidden {hidden}: {adam_warm['sign_flips']} sign flips "
+                             "from a warmed state")
+    kw = dict(tile=KO_TILE, compute_dtype=compute, **ROW_KW)
+    ms = time_cuda(lambda: pr.fused_ppo_grad(model, obs, aux, blocks, **kw), 2, 10)
+    plain_ms = time_cuda(lambda: pr.ppo_grad_plain(model, obs, aux, blocks, **kw), 1, 3)
+    rows = [dict(_grad_row("ppo_fused", model, compute, cmp, ms, plain_ms, obs_dim,
+                           KO_ROW_BLOCKS), tile=KO_TILE)]
+    m_adam = copy.deepcopy(model)
+    opt = torch.optim.Adam(m_adam.parameters(), lr=LEARN_LR, eps=1e-8)
+    ms = time_cuda(lambda: pr.fused_ppo_grad_adam(m_adam, opt, obs, aux, blocks, **kw), 2, 10)
+    m0 = [torch.zeros_like(x) for x in _leaves_of(model)]
+    plain_ms = time_cuda(lambda: pr.ppo_grad_adam_plain(
+        model, m0, m0, 0, obs, aux, blocks, lr=LEARN_LR, b1=0.9, b2=0.999, **kw), 1, 3)
+    rows.append(dict(_grad_row("ppo_fused_adam", model, compute, adam_warm, ms, plain_ms,
+                               obs_dim, KO_ROW_BLOCKS, adam=True), tile=KO_TILE,
+                     empty_state=adam_empty))
     return rows
 
 
 def _ko_grads() -> list:
-    """B2, B3 and B4 at each new instantiation against their plain versions
-    (f32 at the old gates; bf16 leaves within KO_BF16_TOL), with times."""
-    rows = []
+    """B2, B3 and B4 at each new instantiation against their plain
+    versions."""
     cases = [(steps, b, tile, hidden, obs_dim, "f32")
              for steps, b, tile, hidden, obs_dim in KO_B2]
-    cases.append((8, 1536, 128, 128, pf.OBS, "bf16"))
-    for steps, b, tile, hidden, obs_dim, compute in cases:
-        obs, aux, g = _seeded_t(steps, b, 41, obs_dim)
-        model = _model(hidden, 42, obs_dim)
-        n_blocks = min(KO_B2_BLOCKS, steps * b // tile)
-        blocks = torch.randperm(steps * b // tile, generator=g, device=DEVICE)[:n_blocks]
-        blocks = blocks.to(torch.int32)
-        tol = KO_BF16_TOL if compute == "bf16" else 1e-4
-        cmp = grad_compare(model, obs, aux, blocks, tile, phase="kernel_options",
-                           compute=compute, leaf_tol=tol)
-        kw = dict(tile=tile, compute_dtype=compute, **ROW_KW)
-        ms = time_cuda(lambda: pf.fused_ppo_grad_t(model, obs, aux, blocks, **kw), 2, 10)
-        plain_ms = time_cuda(lambda: pf.ppo_grad_t_plain(model, obs, aux, blocks, **kw), 1, 3)
-        row = _grad_row("ppo_fused_t", model, compute, cmp, ms, plain_ms, obs_dim, n_blocks)
-        row.update(T=steps, B=b, tile=tile)
-        rows.append(row)
-    for obs_dim, hidden, compute in KO_ROWMAJOR_GRADS:
-        obs, aux, g = _seeded_rows(KO_ROWS, obs_dim, 43)
-        model = _model(hidden, 44, obs_dim)
-        perm = torch.randperm(KO_ROWS // KO_TILE, generator=g, device=DEVICE).to(torch.int32)
-        blocks = perm[:KO_ROW_BLOCKS]
-        tol = KO_BF16_TOL if compute == "bf16" else 1e-4
-        cmp = grad_compare(model, obs, aux, blocks, KO_TILE, pr.fused_ppo_grad,
-                           pr.ppo_grad_plain, "kernel_options", compute, tol)
-        warm = [perm[KO_ROW_BLOCKS * (i + 1): KO_ROW_BLOCKS * (i + 2)] for i in range(3)]
-        adam_warm = adam_compare(copy.deepcopy(model), obs, aux, blocks, KO_TILE, warm,
-                                 compute, tol, "kernel_options")
-        adam_empty = adam_compare(copy.deepcopy(model), obs, aux, blocks, KO_TILE, [],
-                                  compute, tol, "kernel_options")
-        kw = dict(tile=KO_TILE, compute_dtype=compute, **ROW_KW)
-        ms = time_cuda(lambda: pr.fused_ppo_grad(model, obs, aux, blocks, **kw), 2, 10)
-        plain_ms = time_cuda(lambda: pr.ppo_grad_plain(model, obs, aux, blocks, **kw), 1, 3)
-        rows.append(dict(_grad_row("ppo_fused", model, compute, cmp, ms, plain_ms, obs_dim,
-                                   KO_ROW_BLOCKS), tile=KO_TILE))
-        m_adam = copy.deepcopy(model)
-        opt = torch.optim.Adam(m_adam.parameters(), lr=LEARN_LR, eps=1e-8)
-        ms = time_cuda(lambda: pr.fused_ppo_grad_adam(m_adam, opt, obs, aux, blocks, **kw), 2, 10)
-        m0 = [torch.zeros_like(x) for x in _leaves_of(model)]
-        plain_ms = time_cuda(lambda: pr.ppo_grad_adam_plain(
-            model, m0, m0, 0, obs, aux, blocks, lr=LEARN_LR, b1=0.9, b2=0.999, **kw), 1, 3)
-        rows.append(dict(_grad_row("ppo_fused_adam", model, compute, adam_warm, ms, plain_ms,
-                                   obs_dim, KO_ROW_BLOCKS, adam=True), tile=KO_TILE,
-                         empty_state=adam_empty))
+    cases += [(8, 1536, 128, hidden, obs_dim, "bf16") for hidden, obs_dim in KO_B2_BF16]
+    rows = [_ko_b2(*case) for case in cases]
+    for case in KO_ROWMAJOR_GRADS:
+        rows += _ko_rowmajor_grads(*case)
     return rows
 
 
 def _ko_steps() -> list:
     """A warm fully fused train step at bench.py's shape per KO_STEPS case:
     1 B1 and 40 B2 launches a step, counted; the step's ms, each kernel's
-    time at the step's shapes and its bounds."""
+    time at the step's shapes and its bounds. On the wide designs each
+    kernel is also held to its plain version at those shapes: B1 at the
+    slice phase's gates (atol = rtol = 1e-3 over 256 closed-loop steps), B2
+    as grad_compare holds it."""
     rows = []
     for name, hidden, compute in KO_STEPS:
         env_cfg, pcfg, tcfg = bench_configs()
@@ -1566,8 +1624,9 @@ def _ko_steps() -> list:
         n_params = sum(p.numel() for p in model.parameters())
         b1_bound, b1_by, _, _ = bound(BENCH_B, BENCH_T, BENCH_P, hidden)
         b2_bound, b2_by, _, _ = grad_bound(rows_mb, n_all // n_mb, hidden, n_params)
-        rows.append({
+        row = {
             "case": name, "hidden": hidden, "compute": compute, "B": BENCH_B, "T": BENCH_T,
+            "rollout_source": rf.source(hidden), "grad_source": pf.source("ppo_fused_t", hidden),
             "launches_per_step": launches, "step_ms": step_ms, "warm_step_ms": step_ms[-1],
             "metrics": metrics,
             "rollout_ms": b1_ms, "rollout_bound_ms": b1_bound, "rollout_bound_by": b1_by,
@@ -1575,7 +1634,23 @@ def _ko_steps() -> list:
             "grad_ms": b2_ms, "grad_plain_ms": b2_plain_ms, "grad_bound_ms": b2_bound,
             "grad_bound_by": b2_by,
             "grad_tc_bound_ms": grad_tc_bound(rows_mb, hidden, compute),
-        })
+        }
+        if pf.is_wide(hidden):
+            # the wide design at the bench minibatch against its plain version
+            row["grad_compare"] = grad_compare(model, obs_t, aux_t, blocks, BENCH_TILE,
+                                               phase="kernel_options", compute=compute)
+        if rf.is_wide(hidden):
+            out_k = rf.fused_rollout(s0, noise, pool, wT, env_cfg, ACTION_STD)
+            sync()
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out_p = rf.rollout_plain(s0, noise, pool, wT, rf._scalars(env_cfg), ACTION_STD)
+            end.record()
+            sync()
+            row["rollout_plain_ms"] = start.elapsed_time(end)
+            row["rollout_compare"] = compare(out_k, out_p, atol=1e-3, rtol=1e-3)
+            del out_k, out_p
+        rows.append(row)
         del model, opt, state, step, obs_t, misc, aux_t
     return rows
 
@@ -1596,17 +1671,60 @@ def _ko_rowmajor() -> list:
         step = ppo.make_train_step(model, opt, env_cfg, pcfg, tcfg)
         want = launches_want(**{"ppo_fused_adam" if adam else "ppo_fused": pcfg.k_epochs})
         state, step_ms, launches, metrics, _ = counted_steps(step, state, model, 2, want)
-        rows.append({"case": name, "hist_t": hist_t, "hidden": hidden, "compute": compute,
-                     "launches_per_step": launches, "step_ms": step_ms, "metrics": metrics})
+        row = {"case": name, "hist_t": hist_t, "hidden": hidden, "compute": compute,
+               "launches_per_step": launches, "step_ms": step_ms, "metrics": metrics}
+        if pf.is_wide(hidden):
+            row.update(_rowmajor_times(model, hist_t * 15, compute, adam))
+        rows.append(row)
     return rows
+
+
+def _rowmajor_times(model, obs_dim: int, compute: str, adam: bool) -> dict:
+    """B3 (or B4) held to its plain version on seeded rows of a row-major
+    step's full batch (LEARN_B x KO_ROWMAJOR_T rows, tile 128) as
+    grad_compare (adam_compare from a warmed state, no sign flip allowed)
+    holds it, both timed there, with the bounds."""
+    n = LEARN_B * KO_ROWMAJOR_T
+    obs, aux, _ = _seeded_rows(n, obs_dim, 45)
+    every = torch.arange(n // 128, device=DEVICE, dtype=torch.int32)
+    kw = dict(tile=128, compute_dtype=compute, **ROW_KW)
+    tol = KO_BF16_TOL if compute == "bf16" else 1e-4
+    if adam:
+        warm = [every[i::3] for i in range(3)]
+        cmp = adam_compare(copy.deepcopy(model), obs, aux, every, 128, warm, compute, tol,
+                           "kernel_options")
+        if cmp["sign_flips"]:
+            raise AssertionError(f"B4 at hidden {model.hidden} on {n} rows: "
+                                 f"{cmp['sign_flips']} sign flips from a warmed state")
+    else:
+        cmp = grad_compare(model, obs, aux, every, 128, pr.fused_ppo_grad, pr.ppo_grad_plain,
+                           "kernel_options", compute, tol)
+    if adam:
+        m_adam = copy.deepcopy(model)
+        opt = torch.optim.Adam(m_adam.parameters(), lr=LEARN_LR, eps=1e-8)
+        m0 = [torch.zeros_like(x) for x in _leaves_of(model)]
+        ms = time_cuda(lambda: pr.fused_ppo_grad_adam(m_adam, opt, obs, aux, every, **kw), 2, 10)
+        plain_ms = time_cuda(lambda: pr.ppo_grad_adam_plain(
+            model, m0, m0, 0, obs, aux, every, lr=LEARN_LR, b1=0.9, b2=0.999, **kw), 1, 3)
+    else:
+        ms = time_cuda(lambda: pr.fused_ppo_grad(model, obs, aux, every, **kw), 2, 10)
+        plain_ms = time_cuda(lambda: pr.ppo_grad_plain(model, obs, aux, every, **kw), 1, 3)
+    n_params = sum(p.numel() for p in model.parameters())
+    bound_ms, bound_by, _, _ = grad_bound(n, n // 128, model.hidden, n_params, adam=adam,
+                                          obs=obs_dim)
+    return {"batch_rows": n, "compare": cmp, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "tc_bound_ms": grad_tc_bound(n, model.hidden, compute, obs_dim)}
 
 
 def phase_kernel_options() -> dict:
     """The kernel options beyond the trainer's defaults (hidden widths 32,
     64 and 256 and widths run zero-padded on them, obs 60 and wide obs, any
-    B2 tile, bf16 products), each against its plain
-    version, in train steps with their launches counted, and the bf16
-    learning gate (phase_learn with fused_compute="bf16")."""
+    B2 tile, bf16 products; the wide designs at 512 and 1024, at 300 and 700
+    zero-padded, with bf16 and wide obs), each against its plain version,
+    at the counted steps' shapes too, in train steps with
+    their launches counted, and the bf16 learning gate (phase_learn with
+    fused_compute="bf16")."""
     t0 = time.perf_counter()
     out = {"phase": "kernel_options", "card": card(), "rollouts": _ko_rollouts(),
            "grads": _ko_grads(), "steps": _ko_steps(), "rowmajor": _ko_rowmajor()}
@@ -2385,9 +2503,15 @@ def _bit_equal(a, b) -> bool:
     return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
 
 
+# control_graph_vs_eager's rollout steps: the trainer's 1024 envs, its 128
+# steps cut to 32 (each capture and eager run scales with the steps) to keep
+# the script inside its time limit.
+GRAPH_T = 32
+
+
 def phase_control_graph_vs_eager() -> dict:
-    """`rollout_batch` at the trainer's defaults (1024 x 128; calm and
-    robust, reset pool 0 and 4, the seed-6 model) and `_fly` at 256
+    """`rollout_batch` at the trainer's envs and GRAPH_T steps (1024 x 32;
+    calm and robust, reset pool 0 and 4, the seed-6 model) and `_fly` at 256
     episodes (the solved fixture calm, the robust fixture in the windy env,
     through `make_forensic_eval_fn`), each once replayed from its CUDA
     graphs and once eagerly (`utils.graphs.eager`), from generators with the
@@ -2395,14 +2519,14 @@ def phase_control_graph_vs_eager() -> dict:
     seconds (it captures), and a warm call's ms both ways. Then a parameter
     replaced by another tensor must make the graph raise."""
     t0 = time.perf_counter()
-    tcfg = TrainConfig(num_envs=LEARN_B, rollout_steps=LEARN_T, network_size=128)
+    tcfg = TrainConfig(num_envs=LEARN_B, rollout_steps=GRAPH_T, network_size=128)
     rollouts, evals, bad = [], [], []
     for env_name, cfg in (("calm", EnvConfig()), ("robust", ROBUST_ENV)):
         model, _, state = ppo.ppo_init(6, cfg, PPOConfig(lr=LEARN_LR), tcfg, device=DEVICE)
         for pool in (0, 4):
             def roll(seed, model=model, cfg=cfg, pool=pool, states=state.env_states):
                 gen = torch.Generator(device=DEVICE).manual_seed(seed)
-                return ppo.rollout_batch(model, states, gen, cfg, LEARN_T, pool)
+                return ppo.rollout_batch(model, states, gen, cfg, GRAPH_T, pool)
             sync()
             t_c = time.perf_counter()
             got = roll(11)
@@ -2461,7 +2585,7 @@ def phase_control_graph_vs_eager() -> dict:
     finally:
         layer.weight.data = kept
     out = {"phase": "control_graph_vs_eager", "seconds": time.perf_counter() - t0,
-           "card": card(), "B": LEARN_B, "T": LEARN_T, "rollouts": rollouts, "evals": evals,
+           "card": card(), "B": LEARN_B, "T": GRAPH_T, "rollouts": rollouts, "evals": evals,
            "replaced_parameter_error": raised}
     emit(out)
     if bad:
@@ -3705,6 +3829,31 @@ def _tree_items(tree, path=()):
             yield path + (k,), v
 
 
+def wide_entries(ko: dict, entry) -> list:
+    """The kernels line's rows of the wide designs, from kernel_options: B1
+    and B2 at hidden 512 in the counted fully fused step at bench.py's
+    shape, B4 at 512 and B3 at 1024 in the counted row-major steps, each
+    held to its plain version and timed at those shapes (B3 and B4 on their
+    step's full batch)."""
+    step = next(r for r in ko["steps"] if r["case"] == "hidden512")
+    rowmajor = {r["case"]: r for r in ko["rowmajor"]}
+    b4, b3 = rowmajor["hidden512_b4"], rowmajor["hidden1024_b3"]
+    return [
+        entry("rollout_wide", step["launches_per_step"][-1]["rollout_fused"],
+              step["rollout_compare"]["max_abs_err"],
+              step["rollout_ms"], step["rollout_plain_ms"], step["rollout_bound_ms"],
+              step["rollout_bound_by"]),
+        entry("ppo_wide_t", step["launches_per_step"][-1]["ppo_fused_t"],
+              step["grad_compare"]["max_abs_err"], step["grad_ms"], step["grad_plain_ms"],
+              step["grad_bound_ms"], step["grad_bound_by"]),
+        entry("ppo_wide", b3["launches_per_step"][-1]["ppo_fused"], b3["compare"]["max_abs_err"],
+              b3["ms"], b3["plain_ms"], b3["bound_ms"], b3["bound_by"]),
+        entry("ppo_wide_adam", b4["launches_per_step"][-1]["ppo_fused_adam"],
+              b4["compare"]["max_abs_err"], b4["ms"], b4["plain_ms"], b4["bound_ms"],
+              b4["bound_by"]),
+    ]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3774,6 +3923,7 @@ def main() -> int:
               b4["b4_ms"], b4["b4_plain_ms"], b4["b4_bound_ms"], b4["b4_bound_by"]),
         entry("render_nadir", land["launches"]["render_nadir"], b5_err, b5["kernel_ms"],
               b5["plain_ms"], b5["bound_ms"], b5["bound_by"]),
+        *wide_entries(ko, entry),
     ], "seconds": time.perf_counter() - t0, "phase_seconds": seconds})
     print(card(), flush=True)
     emit({"ok": True, "device": {

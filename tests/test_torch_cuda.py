@@ -169,8 +169,8 @@ def test_grad_kernel_refuses_what_it_does_not_take(card):
     for bad in (
         lambda: pf.fused_ppo_grad_t(model, obs, aux, blocks, tile=24, **kw),   # does not divide B
         lambda: pf.fused_ppo_grad_t(model, obs, aux, blocks, tile=48, **kw),   # does not divide B
-        lambda: pf.fused_ppo_grad_t(ActorCritic(hidden=257).to(card), obs, aux, blocks, tile=32,
-                                    **kw),                                     # above 256
+        lambda: pf.fused_ppo_grad_t(ActorCritic(hidden=1025).to(card), obs, aux, blocks, tile=32,
+                                    **kw),                                     # above 1024
         lambda: pf.fused_ppo_grad_t(model, obs, aux, blocks.long(), tile=32, **kw),
         lambda: pf.fused_ppo_grad_t(model, obs.double(), aux, blocks, tile=32, **kw),
         lambda: pf.fused_ppo_grad_t(model, obs, aux[:, :7].contiguous(), blocks, tile=32, **kw),
@@ -402,8 +402,8 @@ def test_rows_kernels_refuse_what_they_do_not_take(card):
     before = (pr.fused_ppo_grad.launches, pr.fused_ppo_grad_adam.launches)
     for bad in (
         lambda: pr.fused_ppo_grad(model, obs, aux, blocks, tile=48, **ROW_KW),  # does not divide n
-        lambda: pr.fused_ppo_grad(ActorCritic(hidden=257).to(card), obs, aux, blocks, tile=32,
-                                  **ROW_KW),                                   # above 256
+        lambda: pr.fused_ppo_grad(ActorCritic(hidden=1025).to(card), obs, aux, blocks, tile=32,
+                                  **ROW_KW),                                   # above 1024
         lambda: pr.fused_ppo_grad(model, obs, aux, blocks.long(), tile=32, **ROW_KW),
         lambda: pr.fused_ppo_grad(model, obs.double(), aux, blocks, tile=32, **ROW_KW),
         lambda: pr.fused_ppo_grad(model, obs.t().contiguous().t(), aux, blocks, tile=32, **ROW_KW),
@@ -421,10 +421,11 @@ def test_make_train_step_refuses_shapes_the_card_kernels_do_not_take(card):
     """The configurations the card's kernels took to be refused (hidden 32,
     B2 tile 16, obs 60, bf16 products) now build, launch the kernels of their branch and
     step finitely, and so do widths that run zero-padded on an instantiation
-    (20 on 32, 200 and 100 on 256 and 128) and obs too wide to stage (180
-    and 300, read in place); what is left refused when the step is built is
-    a hidden width above 256, naming its ROADMAP item (ROADMAP C1); the
-    autograd branch takes any width."""
+    (20 on 32, 100 on 128, 200 on 256 for B1 and on the wide design for
+    B2-B4), 300 on the wide designs (on 384: B1 fully fused, B3 and B4
+    row-major) and obs too wide to stage (180, 300); what is left refused when the step is built is
+    a hidden width above 1024, naming its ROADMAP item (ROADMAP B, hidden
+    widths above 1024); the autograd branch takes any width."""
     env_cfg = EnvConfig()
     small = TrainConfig(num_envs=64, rollout_steps=16, network_size=32)
     fused = dict(fused_update=True, k_epochs=2)
@@ -441,6 +442,11 @@ def test_make_train_step_refuses_shapes_the_card_kernels_do_not_take(card):
         (PPOConfig(fused_compute="bf16", fused_adam=True, **fused), small, (0, 0, 0, 2)),
         (PPOConfig(**fused),                                                    # hidden 20
          dataclasses.replace(small, network_size=20, fused_rollout=True), (1, 2, 0, 0)),
+        (PPOConfig(**fused),                                                    # hidden 300:
+         dataclasses.replace(small, network_size=300, fused_rollout=True), (1, 2, 0, 0)),
+        (PPOConfig(**fused), dataclasses.replace(small, network_size=300), (0, 0, 2, 0)),
+        (PPOConfig(fused_adam=True, **fused),                                   # the wide designs
+         dataclasses.replace(small, network_size=300), (0, 0, 0, 2)),
     ]
     wide = dataclasses.replace(small, network_size=128)
     short = dataclasses.replace(env_cfg, hist_t=4)  # 60-dim obs
@@ -464,10 +470,10 @@ def test_make_train_step_refuses_shapes_the_card_kernels_do_not_take(card):
         assert all(torch.isfinite(v).all() for v in metrics.values())
     for pcfg, tcfg in [(PPOConfig(**fused), dataclasses.replace(small, fused_rollout=True)),
                        (PPOConfig(**fused), small)]:
-        model, opt, _ = ppo.ppo_init(0, env_cfg, pcfg, dataclasses.replace(tcfg, network_size=257))
-        with pytest.raises(NotImplementedError, match="hidden widths above 256"):
+        model, opt, _ = ppo.ppo_init(0, env_cfg, pcfg, dataclasses.replace(tcfg, network_size=1025))
+        with pytest.raises(NotImplementedError, match="hidden widths above 1024"):
             ppo.make_train_step(model, opt, env_cfg, pcfg,
-                                dataclasses.replace(tcfg, network_size=257))
+                                dataclasses.replace(tcfg, network_size=1025))
     model, opt, state = ppo.ppo_init(0, env_cfg, PPOConfig(k_epochs=1), small)
     state, metrics = ppo.make_train_step(model, opt, env_cfg, PPOConfig(k_epochs=1), small)(state)
     assert all(torch.isfinite(v).all() for v in metrics.values())

@@ -1,7 +1,7 @@
 """The kernel options beyond the trainer's defaults, on the CPU, against the
 JAX package: bf16 products in B2-B4 (`PPOConfig.fused_compute="bf16"`),
-hidden widths 16 and 256, obs 60 (hist_t=4) in B3/B4, and B2 tiles 8 and
-24. Each case feeds numpy-seeded inputs to the JAX kernel run in interpret
+hidden widths 16, 256 and 320 (B1-B4; 320 on the card's wide design), obs
+60 (hist_t=4) in B3/B4, and B2 tiles 8 and 24. Each case feeds numpy-seeded inputs to the JAX kernel run in interpret
 mode (as tests/test_ops.py runs it) and to the port's plain version, which
 is what the card's kernels are held against; and one whole train step with
 bf16 products on each branch against JAX's.
@@ -12,9 +12,9 @@ Tolerances:
   bf16 and sum in f32, so only the f32 sum order differs (measured: 8e-8
   on the loss, 2e-7 on a metric, 2.6e-7 on a leaf, against 4.7e-3 and
   6.4e-3 between the bf16 and the f32 gradients);
-- widths 16 and 256, obs 60 and the tiles: the step-math tolerance of
-  `torch_parity` (rtol 2e-4, atol 2e-5), on each gradient entry and the
-  rollout's outputs;
+- widths 16, 256 and 320 (B4's new params and moments too, from a warmed
+  state), obs 60 and the tiles: the step-math tolerance of `torch_parity`
+  (rtol 2e-4, atol 2e-5), on each gradient entry and the rollout's outputs;
 - the bf16 train steps: JAX's own bf16 bounds (tests/test_ops.py:183-191),
   the loss within rtol 2e-2 and the parameters within 5 lr;
 - the padding identity: the loss and metrics bit for bit, every gradient
@@ -24,8 +24,10 @@ Tolerances:
   and a 32-wide tensor differently; measured up to 2 ulp apart, the
   weight gradients of the two wide products bit-equal).
 
-The two whole train steps take most of this file's time (about 25 and 35
-s alone, JAX compiling its interpret-mode kernels); the rest about 25 s.
+The two whole train steps take most of this file's time (about 14 s each
+in a run of the whole file, JAX compiling its interpret-mode kernels); the
+rest about 50 s, of it 9 s the four cases at hidden 320 (B2 3.8 s, B3 1.2,
+B1 1.9, B4 2.1 on one pytest worker on the CPU).
 """
 
 import functools
@@ -190,12 +192,12 @@ def test_bf16_grad_adam_matches_jax():
             assert _rel_fro(n(g), w) <= 1e-3, (what, name)
 
 
-@pytest.mark.parametrize("hidden", [16, 256])
+@pytest.mark.parametrize("hidden", [16, 256, 320])
 @pytest.mark.parametrize("kernel", ["b2", "b3"])
 def test_width_grad_matches_jax(kernel, hidden):
     """The gradient of the fully fused step (B2) and of the row-major step
-    (B3) at hidden 16 and 256, which the card runs zero-padded on its
-    32- and 256-wide instantiations."""
+    (B3) at hidden 16, 256 and 320, which the card runs zero-padded on its
+    32-wide instantiation and on the wide design (at 256 and 384)."""
     params = _params(hidden, seed=3)
     obs, aux = _rows(ROWS if kernel == "b3" else T_STEPS * B_ENVS, 75, 3)
     if kernel == "b2":
@@ -208,11 +210,12 @@ def test_width_grad_matches_jax(kernel, hidden):
     _assert_leaves_step_math(jax_side, port_side)
 
 
-@pytest.mark.parametrize("hidden", [16, 256])
+@pytest.mark.parametrize("hidden", [16, 256, 320])
 def test_width_rollout_matches_jax(hidden):
     """The rollout of the fully fused step (B1's plain version) at hidden
-    16 and 256 against the JAX package's `rollout_twin`, 8 steps from JAX's
-    reset states, noise and pool."""
+    16, 256 and 320 (the wide rollout's, zero-padded to 384) against the
+    JAX package's `rollout_twin`, 8 steps from JAX's reset states, noise and
+    pool."""
     b, steps = 16, 8
     keys = jax.random.split(jax.random.PRNGKey(4), b + 2)
     js = _reset(keys[:b])
@@ -228,6 +231,31 @@ def test_width_rollout_matches_jax(hidden):
                       (misc_t[:, 8:9], val_j), (misc_t[:, 9:10], rew_j), (s_t, s_j)):
         np.testing.assert_allclose(n(got), np.asarray(want), rtol=RTOL, atol=ATOL)
     np.testing.assert_array_equal(n(misc_t[:, 10:11]), np.asarray(done_j))
+
+
+def test_width_grad_adam_matches_jax():
+    """B4's plain version at hidden 320 (the wide design's, zero-padded to
+    384) against JAX's `fused_ppo_grad_adam`, from a warmed Adam state: the
+    new params, mu and nu at the step-math tolerance."""
+    params = _params(320, seed=6)
+    obs, aux = _rows(ROWS, 75, 6)
+    blocks = np.asarray([3, 0, 7, 5, 1, 10], np.int32)
+    rng = np.random.default_rng(6)
+    mu = jax.tree.map(lambda p: (rng.standard_normal(p.shape) * 1e-2).astype(np.float32), params)
+    nu = jax.tree.map(lambda p: rng.uniform(1e-5, 1e-3, p.shape).astype(np.float32), params)
+    jl, jm, p_j, mu_j, nu_j, _ = jpf.fused_ppo_grad_adam(
+        params, mu, nu, jnp.asarray(3, jnp.int32), jnp.asarray(obs), jnp.asarray(aux),
+        jnp.asarray(blocks), tile=TILE, lr=LR, adam_b1=B1, adam_b2=B2, interpret=True, **KW)
+    model = ActorCritic.from_flax(params, action_std=STD)
+    tl, tm, p_t, mu_t, nu_t, count = tpr.ppo_grad_adam_plain(
+        model, [t(x) for x in _flat(mu)], [t(x) for x in _flat(nu)], 3, t(obs), t(aux),
+        torch.from_numpy(blocks), tile=TILE, lr=LR, b1=B1, b2=B2, **KW)
+    assert count == 4
+    _assert_metrics((float(jl), {k: float(v) for k, v in jm.items()}),
+                    (float(tl), {k: float(v) for k, v in tm.items()}), RTOL)
+    for what, got, want in (("params", p_t, p_j), ("mu", mu_t, mu_j), ("nu", nu_t, nu_j)):
+        for name, g, w in zip(LEAVES, got, _flat(want)):
+            np.testing.assert_allclose(n(g), w, rtol=RTOL, atol=ATOL, err_msg=f"{what} {name}")
 
 
 @pytest.mark.parametrize("adam", [False, True])

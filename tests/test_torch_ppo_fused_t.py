@@ -172,8 +172,10 @@ def test_supports_and_refusals():
     assert not tpf.supports(ob, leaves, 256)          # does not divide B
     small = tpf._leaves(ActorCritic(hidden=32))
     assert tpf.supports(ob, small, 64)                # any width up to 256
-    wide = tpf._leaves(ActorCritic(hidden=257))
-    assert not tpf.supports(ob, wide, 64)             # ROADMAP B, hidden widths above 256
+    for hidden in (257, 1024):                        # the wide kernels, up to 1024
+        assert tpf.supports(ob, tpf._leaves(ActorCritic(hidden=hidden)), 64)
+    wide = tpf._leaves(ActorCritic(hidden=1025))
+    assert not tpf.supports(ob, wide, 64)             # ROADMAP B, hidden widths above 1024
     # A tensor on neither the CPU nor a CUDA card is refused, not computed.
     with pytest.raises(ValueError):
         tpf.fused_ppo_grad_t(
@@ -235,14 +237,16 @@ def _c_to_python(expr: str) -> str:
 
 def _header_constants(hidden: int = 128, obs: int = 75) -> dict:
     """The `constexpr int` and `constexpr bool` constants of
-    `csrc/ppo_grad.cuh` at the instantiation the build gives a model of
-    ``hidden`` units and ``obs`` inputs (its -DAQE_* defines), evaluated in
-    order (those that are not plain arithmetic are skipped)."""
+    `csrc/ppo_grad.cuh` (after those of `csrc/ppo_common.cuh`, which it
+    includes) at the instantiation the build gives a model of ``hidden``
+    units and ``obs`` inputs (its -DAQE_* defines), evaluated in order
+    (those that are not plain arithmetic are skipped)."""
     import os
 
-    path = os.path.join(os.path.dirname(tpf.__file__), "csrc", "ppo_grad.cuh")
+    csrc = os.path.join(os.path.dirname(tpf.__file__), "csrc")
     consts = {f"AQE_{k}": v for k, v in tpf.library(hidden, obs, "f32")}
-    found = re.findall(r"constexpr (?:int|bool) (\w+) = ([^;]+);", open(path).read())
+    text = "".join(open(os.path.join(csrc, f)).read() for f in ("ppo_common.cuh", "ppo_grad.cuh"))
+    found = re.findall(r"constexpr (?:int|bool) (\w+) = ([^;]+);", text)
     for name, expr in found:
         try:
             consts[name] = int(eval(f"({_c_to_python(expr)})", {"__builtins__": {}}, dict(consts)))
@@ -253,15 +257,19 @@ def _header_constants(hidden: int = 128, obs: int = 75) -> dict:
 
 def test_header_declares_the_mirrored_layouts():
     """What the wrappers mirror of the header, the weight pack's width,
-    depth and offsets, is the header's at every width and at narrow and
-    wide obs; each instantiation fits a CTA's shared memory, and the obs
-    that the staged layout does not hold go to the wide one (any obs width
-    runs); at the trainer's instantiation the (2, G, ACCS) partial layout
-    that the reductions and B4's Adam step read is the one they have always
-    read (dW1 rows of 76, then dW2, dW3, b1, b2, b3, 4 metrics)."""
-    wide = {(256, 180), (200, 600), (100, 300), (64, 450), (20, 1500)}
-    for hidden, obs in [(128, 75), (20, 75), (64, 60), (200, 75), (256, 160), (128, 90),
-                        (32, 15), *sorted(wide)]:
+    depth and offsets, is the header's at every width it is built for (up
+    to 128; wider models run on `ppo_grad_wide.cuh`) and at narrow and wide
+    obs; each instantiation fits a CTA's shared memory, two weight-gradient
+    slices share a walk where one CTA's registers do not hold dW2 and dW1,
+    and the obs that the staged layout does not hold go to the wide one
+    (any obs width runs); at the trainer's instantiation the (2, G, ACCS)
+    partial layout that the reductions and B4's Adam step read is the one
+    they have always read (dW1 rows of 76, then dW2, dW3, b1, b2, b3, 4
+    metrics)."""
+    wide = {(128, 300), (100, 300), (64, 450), (20, 1500)}
+    two_slices = {(128, 90), (100, 200)}
+    for hidden, obs in [(128, 75), (20, 75), (64, 60), (128, 90), (100, 200), (32, 15),
+                        *sorted(wide)]:
         c = _header_constants(hidden, obs)
         h, k1 = trf.kernel_width(hidden), tpf.kernel_depth(hidden, obs)
         lay = trf.pack_offsets(h, k1)
@@ -271,6 +279,7 @@ def test_header_declares_the_mirrored_layouts():
                                                                    tpf.CHUNK)
         assert c["SMEM_FLOATS"] * 4 <= 232448, (hidden, obs)
         assert c["WIDE"] == ((hidden, obs) in wide), (hidden, obs)
+        assert c["NS"] == 1 + ((hidden, obs) in two_slices), (hidden, obs)
     c = _header_constants()
     assert [c[k] for k in ("A_W1", "A_W2", "A_W3", "A_B1", "A_B2", "A_B3", "ACC", "ACCS")] == [
         0, 9728, 26112, 26624, 26752, 26880, 26884, 26888]
