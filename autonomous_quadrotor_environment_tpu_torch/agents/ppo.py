@@ -38,9 +38,8 @@ Differences of form from the JAX package:
   the Adam step, which keeps the Adam step out of B4), a metric reduce,
   and the envs one rank rolls out, which the kernels' gates read.
 * The kernels take every configuration the JAX package sends them, bf16
-  products (``fused_compute``) among them, up to hidden width 1024 (B1
-  above 256 and B2-B4 above 128 on the wide designs); on the card a wider
-  model is refused with its ROADMAP item (`train_branch`).
+  products (``fused_compute``) among them, at any hidden width (B1 above
+  256 and B2-B4 above 128 on the wide designs).
 """
 
 from __future__ import annotations
@@ -695,22 +694,20 @@ def rowmajor_step_from_inputs(
     return new_states, _step_metrics(metrics, roll.rewards, roll.dones, roll.solved)
 
 
-def train_branch(model: ActorCritic, opt: torch.optim.Optimizer, env_cfg: EnvConfig,
-                 ppo_cfg: PPOConfig, train_cfg: TrainConfig, local_envs: Optional[int] = None,
-                 reduced: bool = False) -> str:
+def train_branch(model: ActorCritic, env_cfg: EnvConfig, ppo_cfg: PPOConfig,
+                 train_cfg: TrainConfig, local_envs: Optional[int] = None) -> str:
     """The branch the JAX package's `make_train_step` takes for these
     configs, "fused_t" or "rowmajor", after its consistency guards. A
     randomized env takes the row-major branch, since the rollout kernel
     refuses it (`uses_fused_rollout`), as in the JAX package. The gates
     read the batch that one rank rolls out, ``local_envs`` (all
-    ``num_envs`` when None; JAX ppo.py:584-594, :623), and ``reduced`` (a
-    cross-rank gradient reduce) keeps the Adam step out of B4. The kernels
-    take every configuration the JAX package sends them up to hidden width
-    1024 (B1 above 256, B2-B4 above 128 on the wide designs): f32 or bf16
-    products (``fused_compute``), any hist_t on the row-major branch, any
-    tile `update_t_tile` gives. For a model on the card a wider one is refused
-    (ROADMAP B, hidden widths above 1024). The CPU runs every shape through
-    the kernels' plain versions."""
+    ``num_envs`` when None; JAX ppo.py:584-594, :623). B3 or B4 within
+    the row-major branch is `update_plan`'s choice. The kernels take every
+    configuration the JAX package sends them, any hidden width (B1 above
+    256, B2-B4 above 128 on the wide designs): f32 or bf16 products
+    (``fused_compute``), any hist_t on the row-major branch, any tile
+    `update_t_tile` gives. The CPU runs every shape through the kernels'
+    plain versions."""
     if train_cfg.fused_rollout or ppo_cfg.fused_update:
         if float(model.action_std) != float(ppo_cfg.action_std):
             raise ValueError(
@@ -727,15 +724,6 @@ def train_branch(model: ActorCritic, opt: torch.optim.Optimizer, env_cfg: EnvCon
     fused_rollout = uses_fused_rollout(env_cfg, ppo_cfg, train_cfg)
     tile_t = update_t_tile(ppo_cfg, steps, b)
     fused_t = fused_rollout and ppo_cfg.fused_update and not ppo_cfg.fused_adam and tile_t > 0
-    plan = update_plan(ppo_cfg, steps * b, model.learn_std or ppo_cfg.learn_std,
-                       pfr.adam_takes(opt, model), reduced)
-    kernel_update = fused_t or plan.branch != "autograd"
-    if (next(model.parameters()).device.type == "cuda" and (fused_rollout or kernel_update)
-            and not rf.kernel_width(model.hidden)):
-        raise NotImplementedError(
-            f"the port's kernels take hidden widths up to {rf.WIDE_MAX}, not "
-            f"{model.hidden} (ROADMAP B, hidden widths above 1024)"
-        )
     return "fused_t" if fused_t else "rowmajor"
 
 
@@ -765,8 +753,7 @@ def make_train_step(
     it) and updates them in place. Metrics are 0-dim tensors: ``loss``,
     ``actor_loss``, ``critic_loss``, ``entropy``, ``ratio_max``,
     ``reward_per_step``, ``episodes`` and ``solved_frac``."""
-    branch = train_branch(model, opt, env_cfg, ppo_cfg, train_cfg, local_envs,
-                          grad_reduce is not None)
+    branch = train_branch(model, env_cfg, ppo_cfg, train_cfg, local_envs)
 
     def train_step(state: PPOTrainState) -> tuple[PPOTrainState, dict]:
         if state.model is not model or state.optimizer is not opt:

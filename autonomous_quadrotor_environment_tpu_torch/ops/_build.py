@@ -43,9 +43,11 @@ SIGNATURES = {
     "rollout_fused": {
         "rollout_fused": [_P] * 4 + [_P] * 3 + [_I] * 3 + [_P, _F, _F, _I, _P],
     },
-    # the same, and the model's hidden width before the device
+    # the same, and the model's hidden width, the scratch and the card's SMs
+    # before the device
     "rollout_wide": {
-        "rollout_wide": [_P] * 4 + [_P] * 3 + [_I] * 3 + [_P, _F, _F, _I, _I, _P],
+        "rollout_wide": [_P] * 4 + [_P] * 3 + [_I] * 3 + [_P, _F, _F, _I, _P, _I, _I, _P],
+        "rollout_wide_scratch_floats": [_I] * 4,
     },
     "ppo_fused_t": {"ppo_fused_t": [_P] * 6 + [_I] * 5 + [_F] * 5 + [_I] + [_I, _P]},
     "ppo_fused": {
@@ -54,13 +56,15 @@ SIGNATURES = {
     },
     # quad, marker, brightness, out; B, H, W; fx, fy, cx, cy, square,
     # half_w, half_h, ground_z
-    "render_nadir": {"render_nadir": [_P] * 4 + [_I] * 3 + [_F] * 8 + [_I, _P]},
+    "render_nadir": {"render_nadir": [_P] * 4 + [_I] * 3 + [_F] * 8 + [_I, _P],
+                     "render_nadir_smem_bytes": [_I]},
 }
 # The wide gradient libraries take the narrow ones' arguments.
 SIGNATURES["ppo_wide_t"] = {"ppo_fused_t": SIGNATURES["ppo_fused_t"]["ppo_fused_t"]}
 SIGNATURES["ppo_wide"] = SIGNATURES["ppo_fused"]
 # Size queries that do not return an int.
-RESTYPES = {"ppo_grad_work_floats": ctypes.c_longlong}
+RESTYPES = {"ppo_grad_work_floats": ctypes.c_longlong,
+            "rollout_wide_scratch_floats": ctypes.c_longlong}
 
 
 def nvcc_path() -> str:

@@ -1,5 +1,5 @@
-// The PPO gradient kernels' wide design, for hidden widths above 128 (up to
-// 1024): device code and the launch sequence shared by `ppo_wide_t.cu` (B2,
+// The PPO gradient kernels' wide design, for hidden widths above 128:
+// device code and the launch sequence shared by `ppo_wide_t.cu` (B2,
 // transposed batch) and `ppo_wide.cu` (B3 and B4, row-major batch). They
 // compute what the narrow kernels of `ppo_grad.cuh` compute (the clipped-
 // surrogate + value loss under the fixed std and the gradients of all 12
@@ -45,7 +45,15 @@
 //
 // Any width that is a multiple of 128 runs, set at run time (`hp`): a
 // model of hr units runs zero-padded on hp = hr rounded up to 128 (the
-// padding identity of `ppo_grad.cuh`). Any obs width: K1 is built in.
+// padding identity of `ppo_grad.cuh`). Any obs width: K1 is built in. No
+// array is sized by a widest width: the loss pass loops over the units and
+// reads W3 in place through L1; the activations' super-chunk is sized by
+// the width (R x hp floats fixed); the walkers G follow the SMs (`walkers`),
+// so the partials grow as G hp^2 <= 128 SMs hp while G can be cut, and as
+// hp^2 once G is 1. Offsets are 32-bit within a
+// head's arrays (the pack, a partial, the flat output), 64-bit across
+// them: `ops/ppo_fused_t.py:check_fits` refuses, naming the bytes, a width
+// whose arrays 32-bit offsets cannot address.
 //
 // The products (`gemm_kernel`): 256 threads, a 128 x 128 output tile, K in
 // steps of 32 through a 3-stage ring of cp.async copies into shared memory
@@ -90,7 +98,6 @@ using namespace ppo_grad;
 constexpr int OBS = AQE_OBS;
 constexpr bool BF16 = AQE_BF16 != 0;
 constexpr int HT = 128;                       // widths run padded to a multiple of this
-constexpr int H_MAX = 1024;                   // the loss pass: 4 columns a thread
 constexpr int K1 = (OBS + 31) / 32 * 32;      // obs, then zeros
 constexpr int THREADS = 256;
 constexpr int BM = 128, BN = 128, BK = 32, STAGES = 3;
@@ -100,6 +107,18 @@ constexpr int TILE_FLOATS = BM * LDK;         // one operand's tile, either way
 constexpr int GEMM_SMEM = STAGES * 2 * TILE_FLOATS * 4;
 constexpr int LROWS = 64;                     // rows of a loss-pass CTA
 constexpr int RMAX_FLOATS = 1 << 24;          // a super-chunk's rows x width
+// Above this width the products whose depth grows with the width or the
+// rows (all but H1's) add each k-step's tensor-core sum, started from zero,
+// to the tile's sum on the CUDA cores ("promotion"). A sum carried through
+// the whole depth in the mma accumulator drifts with the number of mma
+// steps (the tensor cores' additions are not rounded to nearest): on
+// kernel_options' 12,288 seeded rows the weight leaves sat 1.1e-5 off the
+// f32 plain version at 1024 and 3.4e-5 at 4096; promoted, 5e-7 to 2.5e-6
+// off the float64 plain version at 1152-4096, as the f32 plain version
+// itself (`chip_smoke.py`, NVIDIA H100 80GB HBM3, 700 W). The second
+// 64-float accumulator costs the product kernel its second CTA an SM; to
+// 1024 nothing changes.
+constexpr int PROMOTE_ABOVE = 1024;
 
 static_assert(BK * LDI <= TILE_FLOATS && LDK % 4 == 0 && LDI % 4 == 0, "tiles");
 static_assert(GEMM_SMEM <= 232448, "more shared memory than a CTA may have");
@@ -219,9 +238,20 @@ __device__ __forceinline__ void mma_tile(float (&acc)[MT][NT][4], const VA& a, c
   }
 }
 
-// Two CTAs an SM (128 registers a thread, 2 x 108 KB of shared memory).
-template <bool A_KR, bool B_KR, int EPI>
-__global__ void __launch_bounds__(THREADS, 2) gemm_kernel(Gemm g) {
+template <int MT, int NT>
+__device__ __forceinline__ void add_to(float (&acc)[MT][NT][4], const float (&s)[MT][NT][4]) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] += s[mt][nt][e];
+}
+
+// Two CTAs an SM (128 registers a thread, 2 x 108 KB of shared memory); one
+// with PROMOTE (each k-step's sum from zero, added to acc in f32).
+template <bool A_KR, bool B_KR, int EPI, bool PROMOTE>
+__global__ void __launch_bounds__(THREADS, PROMOTE ? 1 : 2) gemm_kernel(Gemm g) {
   extern __shared__ float4 smem4[];
   float* S = reinterpret_cast<float*>(smem4);
   const int head = blockIdx.z, n0 = blockIdx.x * BN;
@@ -253,7 +283,16 @@ __global__ void __launch_bounds__(THREADS, 2) gemm_kernel(Gemm g) {
     if (k + STAGES - 1 < ke) load(k + STAGES - 1, (k + STAGES - 1 - kb) % STAGES);
     cp_async_commit();
     const float* st = S + ((k - kb) % STAGES) * 2 * TILE_FLOATS;
-    mma_tile(acc, TileView<A_KR>(st, 64 * wm), TileView<B_KR>(st + TILE_FLOATS, 32 * wn), BK);
+    const TileView<A_KR> va(st, 64 * wm);
+    const TileView<B_KR> vb(st + TILE_FLOATS, 32 * wn);
+    if constexpr (PROMOTE) {
+      float part[4][4][4];
+      zero(part);
+      mma_tile(part, va, vb, BK);
+      add_to(acc, part);
+    } else {
+      mma_tile(acc, va, vb, BK);
+    }
     if (row_sums)
       for (int r = threadIdx.x / BM; r < BK; r += THREADS / BM) rsum += st[r * LDI + threadIdx.x % BM];
   }
@@ -318,22 +357,27 @@ struct LossPass {
   LossConsts c;
 };
 
+// x as a product's operand, four at a time.
+__device__ __forceinline__ float4 opnd4(float4 v) {
+  return make_float4(opnd(v.x), opnd(v.y), opnd(v.z), opnd(v.w));
+}
+
 // Rows r0..r0+63 of one head (grid (R / 64, 2)): (a) each warp 8 rows, the
 // lanes over the units: the head's outputs, the loss row and g_out; (b)
-// each thread 4 units over the 64 rows: g_h2 in place of h2, the sums of
-// dW3 and b2; (c) the CTA's row of column sums.
+// each thread 4 units at a time, looping over the units, over the 64 rows:
+// g_h2 in place of h2, the sums of dW3 and b2 (each column's in row order,
+// so two launches give the same bits); (c) the CTA's row of column sums.
+// W3 as a product's operand is read in place through L1 and rounded as
+// read.
 __global__ void __launch_bounds__(THREADS) loss_kernel(LossPass P) {
-  __shared__ float4 w3s4[NA * H_MAX / 4];
   __shared__ float go[LROWS][NA];
   __shared__ float wsum[THREADS / 32][2 + NA];
-  float* w3s = reinterpret_cast<float*>(w3s4);
   const int head = blockIdx.y, r0 = blockIdx.x * LROWS, hp = P.hp;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const Pack pk = make_pack(hp);
   const float* W = P.pack + head * P.pack_head;
   float* H2 = P.h2 + head * P.h2_head;
-  for (int e = tid; e < NA * hp; e += THREADS) w3s[e] = opnd(W[pk.w3 + e]);
-  __syncthreads();
+  auto w3at = [&](int e) { return opnd4(ld4(W + pk.w3 + e)); };
 
   // (a)
   float lsum = 0.f, rmax = 0.f, b3[NA] = {0.f, 0.f, 0.f, 0.f};
@@ -345,7 +389,7 @@ __global__ void __launch_bounds__(THREADS) loss_kernel(LossPass P) {
       const float4 hv = lds4(h + k);
 #pragma unroll
       for (int o = 0; o < NA; ++o) {
-        const float4 wv = lds4(w3s + o * hp + k);
+        const float4 wv = w3at(o * hp + k);
         s[o] = fmaf(opnd(hv.x), wv.x, s[o]);
         s[o] = fmaf(opnd(hv.y), wv.y, s[o]);
         s[o] = fmaf(opnd(hv.z), wv.z, s[o]);
@@ -383,12 +427,11 @@ __global__ void __launch_bounds__(THREADS) loss_kernel(LossPass P) {
 
   // (b)
   float* cs = P.cs + head * P.cs_head + (size_t)blockIdx.x * P.csw;
-  const int k = 4 * tid;
-  if (k < hp) {
+  for (int k = 4 * tid; k < hp; k += 4 * THREADS) {
     float w3[NA][4], d3[NA][4], sb[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
     for (int o = 0; o < NA; ++o) {
-      const float4 wv = lds4(w3s + o * hp + k);
+      const float4 wv = w3at(o * hp + k);
       w3[o][0] = wv.x;
       w3[o][1] = wv.y;
       w3[o][2] = wv.z;
@@ -474,21 +517,30 @@ __global__ void sums_kernel(const float* __restrict__ cs, float* __restrict__ wo
 // The launch sequence
 // ---------------------------------------------------------------------------
 
-template <bool A_KR, bool B_KR, int EPI>
-cudaError_t launch_gemm(const Gemm& g, cudaStream_t s) {
-  cudaError_t err = cudaFuncSetAttribute(gemm_kernel<A_KR, B_KR, EPI>,
+template <bool A_KR, bool B_KR, int EPI, bool PROMOTE>
+cudaError_t launch_gemm_as(const Gemm& g, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(gemm_kernel<A_KR, B_KR, EPI, PROMOTE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, GEMM_SMEM);
   if (err != cudaSuccess) return err;
   const dim3 grid((g.N + BN - 1) / BN, g.tiles_m * g.splits, 2);
-  gemm_kernel<A_KR, B_KR, EPI><<<grid, THREADS, GEMM_SMEM, s>>>(g);
+  gemm_kernel<A_KR, B_KR, EPI, PROMOTE><<<grid, THREADS, GEMM_SMEM, s>>>(g);
   return cudaGetLastError();
+}
+
+template <bool A_KR, bool B_KR, int EPI>
+cudaError_t launch_gemm(const Gemm& g, bool promote, cudaStream_t s) {
+  return promote ? launch_gemm_as<A_KR, B_KR, EPI, true>(g, s)
+                 : launch_gemm_as<A_KR, B_KR, EPI, false>(g, s);
 }
 
 // The chunk walkers per head, G: the slices of K that the weight
 // gradients' output tiles are split over, so that dW1's 2 G (hp / 128)
 // (K1 / 128) CTAs (dW2 has hp / 128 times more) about fill the SMs twice;
 // 1..32 (on the card 32 rather than 16 made B2 at H = 256 faster at the
-// bench minibatch and left 512 and 1024 as they were).
+// bench minibatch and left 512 and 1024 as they were). So G hp <= 128 SMs
+// and the partials (G hp^2) grow as hp while G > 1; from 128 SMs units
+// (16,896 on 132 SMs) G is 1 and they grow as hp^2, past 8 GB near 31,600
+// units; where the card lacks them the wrapper names the bytes.
 inline int walkers(int hr, int sms) {
   const int g = sms / (padded(hr) / HT * ((K1 + BN - 1) / BN));
   return g < 1 ? 1 : (g > 32 ? 32 : g);
@@ -511,6 +563,7 @@ cudaError_t run(const Gather& gather, const float* pack, float* work, int hr, in
   float* h2 = work + w.h2;
   float* cs = work + w.cs;
   const size_t act = (size_t)w.rmax * hp;
+  const bool promote = hp > PROMOTE_ABOVE;
   cudaError_t err = cudaSuccess;
   for (int r0 = 0; r0 < mb && err == cudaSuccess; r0 += w.rmax) {
     const int left = (mb - r0 + BM - 1) / BM * BM;
@@ -522,11 +575,11 @@ cudaError_t run(const Gather& gather, const float* pack, float* work, int hr, in
     // H1 = tanh(X W1^T + b1)
     g = Gemm{xs, pack + pk.w1, h1, pack + pk.b1, 0, (size_t)pk.size, act, (size_t)pk.size,
              R, K1, hp, R, hp, K1, R / BM, 1};
-    if ((err = launch_gemm<true, false, EPI_TANH>(g, s)) != cudaSuccess) break;
+    if ((err = launch_gemm_as<true, false, EPI_TANH, false>(g, s)) != cudaSuccess) break;
     // H2 = tanh(H1 W2^T + b2)
     g = Gemm{h1, pack + pk.w2, h2, pack + pk.b2, act, (size_t)pk.size, act, (size_t)pk.size,
              hp, hp, hp, R, hp, hp, R / BM, 1};
-    if ((err = launch_gemm<false, false, EPI_TANH>(g, s)) != cudaSuccess) break;
+    if ((err = launch_gemm<false, false, EPI_TANH>(g, promote, s)) != cudaSuccess) break;
     // the loss rows, g_h2 in place of H2, the column sums
     const LossPass lp{pack, h2, aux, cs, (size_t)pk.size, act,
                       (size_t)(w.rmax / LROWS) * w.csw, hp, R, w.csw, c};
@@ -539,16 +592,16 @@ cudaError_t run(const Gather& gather, const float* pack, float* work, int hr, in
     g = Gemm{h2, h1, work, nullptr, act, act, (size_t)G * w.accs, 0,
              hp, hp, hp, hp, hp, R, hp / BM, G,
              (size_t)w.accs, L.w2, hp, -1, first};
-    if ((err = launch_gemm<true, true, EPI_PARTIAL>(g, s)) != cudaSuccess) break;
+    if ((err = launch_gemm<true, true, EPI_PARTIAL>(g, promote, s)) != cudaSuccess) break;
     // g_h1 = (g_h2 W2) (1 - h1^2) in place of H1
     g = Gemm{h2, pack + pk.w2, h1, nullptr, act, (size_t)pk.size, act, 0,
              hp, hp, hp, R, hp, hp, R / BM, 1};
-    if ((err = launch_gemm<false, true, EPI_DGRAD>(g, s)) != cudaSuccess) break;
+    if ((err = launch_gemm<false, true, EPI_DGRAD>(g, promote, s)) != cudaSuccess) break;
     // dW1 = g_h1^T X, and b1's gradient: g_h1's sums over the rows
     g = Gemm{h1, xs, work, nullptr, act, 0, (size_t)G * w.accs, 0,
              hp, R, L.obs_p, hp, K1, R, hp / BM, G,
              (size_t)w.accs, L.w1, OBS, L.b1, first};
-    err = launch_gemm<true, false, EPI_PARTIAL>(g, s);
+    err = launch_gemm<true, false, EPI_PARTIAL>(g, promote, s);
   }
   return err;
 }
@@ -575,13 +628,14 @@ int ppo_grad_out_floats(int hr) {
   return ppo_grad::out_actor(ppo_wide::OBS, hr) + ppo_grad::out_critic(ppo_wide::OBS, hr) + 3;
 }
 
-// The instantiation, as the narrow libraries report theirs: 0 H (the
-// widest it takes; it takes any multiple of 128 up to it), 1 OBS, 2 bf16,
-// 3 K1, 4 slices (1: no CTA redoes a chunk), 5 weights resident (0), 6
-// shared memory bytes of the product kernel, 7 WIDE (0: X is staged).
+// The instantiation, as the narrow libraries report theirs: 0 H (here the
+// multiple of which every width runs, zero-padded: 128; the width is an
+// argument), 1 OBS, 2 bf16, 3 K1, 4 slices (1: no CTA redoes a chunk), 5
+// weights resident (0), 6 shared memory bytes of the product kernel, 7 WIDE
+// (0: X is staged).
 int ppo_grad_config(int i) {
   using namespace ppo_wide;
-  const int v[] = {H_MAX, OBS, BF16 ? 1 : 0, K1, 1, 0, GEMM_SMEM, 0};
+  const int v[] = {HT, OBS, BF16 ? 1 : 0, K1, 1, 0, GEMM_SMEM, 0};
   return i >= 0 && i < 8 ? v[i] : -1;
 }
 

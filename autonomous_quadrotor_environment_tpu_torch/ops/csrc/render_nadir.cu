@@ -17,15 +17,17 @@
 // sin/cos of the ground shading. Only the checker, the products of the
 // factors, the ground's mixed sinf(x_w * 5.1 + y_w * 3.7) and the channels
 // mix the two. So a CTA owns one band of BAND_ROWS rows of one image (grid:
-// bands x B): it first computes each column's terms (x_w, its square wave,
-// board and coverage factors, sinf(x_w * 1.7)) and each of its rows' terms
-// (y_w, the same for y, cosf(y_w * 1.3)) into shared memory, each with
-// exactly the expression of the per-pixel formula, then each thread forms
-// four neighbouring pixels of a row from them and stores them as one
-// float4 per channel (a row of 84 floats is 336 bytes, a channel plane
-// 28,224: both multiples of 16); a width that is not a multiple of 4 takes
-// one pixel and scalar stores at a time. The pixels are the per-pixel
-// formula's, with the same operations in the same order.
+// bands x column spans x B; one span up to SPAN columns, so any width): it
+// first computes each of its columns' terms (x_w, its square wave, board
+// and coverage factors, sinf(x_w * 1.7)) into dynamic shared memory (20
+// bytes a column: 9.6 KB at 480) and each of its rows' terms (y_w, the same
+// for y, cosf(y_w * 1.3)) into static shared memory, each with exactly the
+// expression of the per-pixel formula, then each thread forms four
+// neighbouring pixels of a row from them and stores them as one float4 per
+// channel (a row of 84 floats is 336 bytes, a channel plane 28,224: both
+// multiples of 16); a width that is not a multiple of 4 takes one pixel
+// and scalar stores at a time. The pixels are the per-pixel formula's, with
+// the same operations in the same order.
 //
 // Precision. Precise sinf/cosf/floorf and IEEE division (no fast math).
 // The cell parity is c - 2*floor(c/2), a floor-mod like the plain
@@ -40,7 +42,7 @@ namespace {
 
 constexpr int THREADS = 128;
 constexpr int BAND_ROWS = 21;  // rows per CTA: 84 = 4 bands
-constexpr int MAX_W = 256;     // widest image the column terms hold
+constexpr int SPAN = 2048;     // columns per CTA at most: 40 KB of column terms
 constexpr float DARK = 0.05f, LIGHT = 0.95f, BORDER = 0.9f;
 __constant__ float GROUND[3] = {0.35f, 0.42f, 0.32f};
 
@@ -79,10 +81,8 @@ __device__ __forceinline__ AxisTerms axis_terms(float x_w, float m, float half, 
           clip01((half + square - a) / soft + 0.5f)};
 }
 
-// The shared column and row terms of a band; the column arrays are 16-byte
-// aligned, so four neighbouring columns load as one float4 each.
-struct __align__(16) Terms {
-  float x[MAX_W], px[MAX_W], bx[MAX_W], cx[MAX_W], sx[MAX_W];
+// The row terms of a band, in static shared memory.
+struct Rows {
   float y[BAND_ROWS], py[BAND_ROWS], by[BAND_ROWS], cy[BAND_ROWS], cyw[BAND_ROWS];
 };
 
@@ -92,7 +92,7 @@ struct Col {
 };
 
 // Pixel (column terms c, band row i): its three channels.
-__device__ __forceinline__ void pixel(const Col& c, const Terms& tm, int i, float bright,
+__device__ __forceinline__ void pixel(const Col& c, const Rows& tm, int i, float bright,
                                       float (&rgb)[3]) {
   const float px = c.px, py = tm.py[i];
   const float checker = px * (1.f - py) + py * (1.f - px);
@@ -109,6 +109,13 @@ __device__ __forceinline__ void pixel(const Col& c, const Terms& tm, int i, floa
   }
 }
 
+// The column span a CTA holds, rounded up to 4 (each of its 5 arrays of
+// column terms starts 16-byte aligned, so four neighbouring columns load as
+// one float4 each).
+__host__ __device__ __forceinline__ int span_floats(int W) {
+  return ((W < SPAN ? W : SPAN) + 3) & ~3;
+}
+
 __device__ __forceinline__ float4 lds4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
@@ -117,9 +124,16 @@ __global__ void __launch_bounds__(THREADS)
 render_nadir_kernel(const float* __restrict__ quad, const float* __restrict__ marker,
                     const float* __restrict__ brightness, float* __restrict__ out,
                     Geometry g) {
-  __shared__ Terms tm;
-  const int env = blockIdx.y, v0 = blockIdx.x * BAND_ROWS;
-  const int rows = min(BAND_ROWS, g.H - v0);
+  extern __shared__ float4 cols4[];
+  __shared__ Rows tm;
+  const int sw = span_floats(g.W);
+  float* const cx_w = reinterpret_cast<float*>(cols4);  // x_w, px, bx, cx, sx: [5][sw]
+  float* const cpx = cx_w + sw;
+  float* const cbx = cpx + sw;
+  float* const ccx = cbx + sw;
+  float* const csx = ccx + sw;
+  const int env = blockIdx.z, v0 = blockIdx.x * BAND_ROWS, u0 = blockIdx.y * SPAN;
+  const int rows = min(BAND_ROWS, g.H - v0), w = min(SPAN, g.W - u0);
   const float cam_x = quad[3 * env + 0];
   const float cam_y = quad[3 * env + 1];
   const float height = fmaxf(quad[3 * env + 2] - g.ground_z, 1e-3f);
@@ -130,17 +144,17 @@ render_nadir_kernel(const float* __restrict__ quad, const float* __restrict__ ma
 
   // Nadir ray meets the ground plane at t = height:
   // world = cam + height * ((u - cx)/fx, -(v - cy)/fy, -1).
-  for (int k = threadIdx.x; k < g.W + rows; k += THREADS) {
-    if (k < g.W) {
-      const float x_w = cam_x + ((float)k - g.cx) / g.fx * height;
+  for (int k = threadIdx.x; k < w + rows; k += THREADS) {
+    if (k < w) {
+      const float x_w = cam_x + ((float)(u0 + k) - g.cx) / g.fx * height;
       const AxisTerms a = axis_terms(x_w, mx, g.half_w, g.square, soft);
-      tm.x[k] = x_w;
-      tm.px[k] = a.wave;
-      tm.bx[k] = a.board;
-      tm.cx[k] = a.cover;
-      tm.sx[k] = sinf(x_w * 1.7f);
+      cx_w[k] = x_w;
+      cpx[k] = a.wave;
+      cbx[k] = a.board;
+      ccx[k] = a.cover;
+      csx[k] = sinf(x_w * 1.7f);
     } else {
-      const int i = k - g.W;
+      const int i = k - w;
       const float y_w = cam_y - ((float)(v0 + i) - g.cy) / g.fy * height;
       const AxisTerms a = axis_terms(y_w, my, g.half_h, g.square, soft);
       tm.y[i] = y_w;
@@ -153,13 +167,13 @@ render_nadir_kernel(const float* __restrict__ quad, const float* __restrict__ ma
   __syncthreads();
 
   const size_t hw = (size_t)g.H * g.W;
-  float* img = out + (size_t)env * 3 * hw + (size_t)v0 * g.W;
+  float* img = out + (size_t)env * 3 * hw + (size_t)v0 * g.W + u0;
   if ((g.W & 3) == 0) {
-    const int quads = g.W / 4;
+    const int quads = w / 4;
     for (int k = threadIdx.x; k < rows * quads; k += THREADS) {
       const int i = k / quads, u = 4 * (k % quads);
-      const float4 x = lds4(tm.x + u), px = lds4(tm.px + u), bx = lds4(tm.bx + u),
-                   cx = lds4(tm.cx + u), sx = lds4(tm.sx + u);
+      const float4 x = lds4(cx_w + u), px = lds4(cpx + u), bx = lds4(cbx + u),
+                   cx = lds4(ccx + u), sx = lds4(csx + u);
       const Col cols[4] = {{x.x, px.x, bx.x, cx.x, sx.x}, {x.y, px.y, bx.y, cx.y, sx.y},
                            {x.z, px.z, bx.z, cx.z, sx.z}, {x.w, px.w, bx.w, cx.w, sx.w}};
       float p[4][3];
@@ -171,9 +185,9 @@ render_nadir_kernel(const float* __restrict__ quad, const float* __restrict__ ma
             make_float4(p[0][c], p[1][c], p[2][c], p[3][c]);
     }
   } else {
-    for (int k = threadIdx.x; k < rows * g.W; k += THREADS) {
-      const int i = k / g.W, u = k % g.W;
-      const Col col{tm.x[u], tm.px[u], tm.bx[u], tm.cx[u], tm.sx[u]};
+    for (int k = threadIdx.x; k < rows * w; k += THREADS) {
+      const int i = k / w, u = k % w;
+      const Col col{cx_w[u], cpx[u], cbx[u], ccx[u], csx[u]};
       float p[3];
       pixel(col, tm, i, bright, p);
 #pragma unroll
@@ -186,26 +200,25 @@ render_nadir_kernel(const float* __restrict__ quad, const float* __restrict__ ma
 
 extern "C" {
 
+// Dynamic shared memory of the kernel in bytes at image width W: the
+// column terms of a span (the row terms are static).
+int render_nadir_smem_bytes(int W) { return 5 * span_floats(W) * (int)sizeof(float); }
+
 // Launches the render on `stream` and returns cudaGetLastError(): a launch
 // the card refuses never runs and is reported only here. `brightness` may
-// be null (brightness 1); W must be at most 256.
+// be null (brightness 1); any H and W, B up to 65,535 (the grid's z).
 int render_nadir(const float* quad, const float* marker, const float* brightness, float* out,
                  int B, int H, int W, float fx, float fy, float cx, float cy, float square,
                  float half_w, float half_h, float ground_z, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (W > MAX_W) return (int)cudaErrorInvalidValue;
   if (B == 0 || H == 0 || W == 0) return 0;
   Geometry g{H, W, fx, fy, cx, cy, square, half_w, half_h, ground_z};
-  const dim3 grid((H + BAND_ROWS - 1) / BAND_ROWS, B);
-  render_nadir_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      quad, marker, brightness, out, g);
+  const dim3 grid((H + BAND_ROWS - 1) / BAND_ROWS, (W + SPAN - 1) / SPAN, B);
+  render_nadir_kernel<<<grid, THREADS, render_nadir_smem_bytes(W),
+                        static_cast<cudaStream_t>(stream)>>>(quad, marker, brightness, out, g);
   return (int)cudaGetLastError();
 }
-
-// Dynamic shared memory of the kernel in bytes (none; its column and row
-// terms are static).
-int render_nadir_smem_bytes() { return 0; }
 
 const char* cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 

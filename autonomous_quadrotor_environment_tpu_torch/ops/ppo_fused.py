@@ -54,7 +54,7 @@ from .ppo_fused_t import (
     raise_on_error,
     split_out,
 )
-from .rollout_fused import _check, kernel_width
+from .rollout_fused import _check
 
 
 def pack_aux(actions: torch.Tensor, old_logprobs: torch.Tensor, returns: torch.Tensor,
@@ -71,7 +71,7 @@ def pack_aux(actions: torch.Tensor, old_logprobs: torch.Tensor, returns: torch.T
 
 
 def supports(obs: torch.Tensor, leaves: list, tile: int) -> bool:
-    """What the kernels take: a hidden width up to 1024, any obs width (any
+    """What the kernels take: any hidden width, any obs width (any
     EnvConfig.hist_t * 15), 4 actions, and any tile that divides the rows.
     They compute under the fixed std they are given (the JAX gate sends a
     learned std to autograd), in f32 or bf16 products."""
@@ -79,7 +79,6 @@ def supports(obs: torch.Tensor, leaves: list, tile: int) -> bool:
     return (
         len(leaves) == 12
         and tuple(leaves[0].shape)[1] == obs_dim
-        and kernel_width(leaves[0].shape[0]) > 0
         and tuple(leaves[4].shape)[0] == ACT
         and tile > 0
         and n % tile == 0
@@ -188,8 +187,7 @@ def _check_rows(obs, aux, perm, tile, leaves):
     check_leaves(leaves, device, obs_dim)
     if not supports(obs, leaves, tile):
         raise ValueError(
-            "the ppo_fused kernels take hidden widths up to 1024, 4 actions and a tile "
-            "dividing the rows; got obs "
+            "the ppo_fused kernels take 4 actions and a tile dividing the rows; got obs "
             f"{tuple(obs.shape)}, tile {tile}"
         )
 

@@ -10,9 +10,9 @@ kernel's (T, features, B) output, the clipped-surrogate + value loss of
   instantiation (`library`: a hidden width of 32, 64 or 128 that a
   narrower model runs zero-padded on, the obs width, f32 or bf16
   products; the rest of the layout the header derives); a model wider than
-  128 (up to 1024) on `csrc/ppo_wide_t.cu` (`csrc/ppo_grad_wide.cuh`: tiled
-  products over super-chunks of rows, its width read at run time), built
-  per obs width and precision;
+  128, of any width, on `csrc/ppo_wide_t.cu` (`csrc/ppo_grad_wide.cuh`:
+  tiled products over super-chunks of rows, its width read at run time),
+  built per obs width and precision;
 * on CPU tensors, as `ppo_grad_t_plain`: the rows gathered by block id and
   `torch.autograd` of `ppo_loss` on them, which is also the reference the
   kernel is held against on the card.
@@ -39,9 +39,12 @@ from . import _build
 from .rollout_fused import (
     ACT,
     OBS,
-    WIDE_MAX,
+    WIDE_STEP,
     _check,
+    check_offsets,
+    device_buffer,
     kernel_width,
+    pack_offsets,
     transpose_leaves,
     weight_pack,
 )
@@ -81,16 +84,15 @@ def entropy_const(action_std: float) -> float:
 
 
 def supports(obs_t: torch.Tensor, leaves: list, tile: int) -> bool:
-    """What the kernel takes: a hidden width up to 1024, any obs width, 4
-    actions, and env tiles that divide B. It computes under the fixed std
-    it is given (the JAX gate sends a learned std to autograd), in f32 or
-    bf16 products."""
+    """What the kernel takes: any hidden width, any obs width, 4 actions,
+    and env tiles that divide B. It computes under the fixed std it is
+    given (the JAX gate sends a learned std to autograd), in f32 or bf16
+    products."""
     _, obs_dim, b = obs_t.shape
     return (
         len(leaves) == 12
         and tuple(leaves[0].shape)[1] == obs_dim
         and tuple(leaves[4].shape)[0] == ACT
-        and kernel_width(leaves[0].shape[0]) > 0
         and tile > 0
         and b % tile == 0
     )
@@ -133,8 +135,10 @@ def ppo_grad_t_plain(model_or_leaves, obs_t, aux_t, perm, *, tile: int,
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
-    """x rounded to bf16 to nearest even, as f32 (JAX's astype(bfloat16))."""
-    return x.to(torch.bfloat16).float()
+    """x rounded to bf16 to nearest even, in x's own dtype (JAX's
+    astype(bfloat16) for f32; a float64 copy of the plain version keeps its
+    products and sums in float64)."""
+    return x.to(torch.bfloat16).to(x.dtype)
 
 
 class _Bf16Linear(torch.autograd.Function):
@@ -224,17 +228,31 @@ def _pack(leaves: list[torch.Tensor]) -> torch.Tensor:
     return weight_pack(leaves, kernel_width(hidden), kernel_depth(hidden, obs))
 
 
+def check_fits(hidden: int, obs: int) -> None:
+    """Raise, naming the bytes, where a model of ``hidden`` units with
+    ``obs`` inputs has an array that the gradient kernels' 32-bit offsets
+    cannot address: a head's weight pack, a head's partial of the workspace
+    (`csrc/ppo_common.cuh:Layout`) or the flat output (both heads' 12
+    leaves and 3 metrics; at about 2 hidden^2 floats the first to pass the
+    limit, near 32,700 units)."""
+    width, obs_p = kernel_width(hidden), -(-obs // 4) * 4
+    check_offsets("weight pack a head", pack_offsets(width, kernel_depth(hidden, obs))["PACK"],
+                  hidden)
+    check_offsets("gradient partial a head",
+                  width * obs_p + width * width + (ACT + 2) * width + ACT + 4, hidden)
+    check_offsets("gradient output",
+                  2 * (obs * hidden + 2 * hidden + hidden * hidden) + (ACT + 1) * hidden + ACT + 4,
+                  hidden)
+
+
 def check_leaves(leaves: list, device: torch.device, obs: int) -> None:
     """Raise unless ``leaves`` are 12 float32 leaves on ``device`` of one
-    width that the gradient kernels take, with ``obs`` inputs."""
+    width with ``obs`` inputs whose arrays the gradient kernels address
+    (`check_fits`)."""
     if len(leaves) != 12:
         raise ValueError("want the 12 ActorCritic leaves in flax leaf order")
     hidden = leaves[0].shape[0]
-    if not kernel_width(hidden):
-        raise ValueError(
-            f"the gradient kernels take hidden widths up to {WIDE_MAX}, not {hidden} "
-            "(ROADMAP B, hidden widths above 1024)"
-        )
+    check_fits(hidden, obs)
     for i, (w, shape) in enumerate(zip(leaves, _leaf_shapes(hidden, obs=obs))):
         if w.device != device or w.dtype != torch.float32 or w.numel() != math.prod(shape):
             raise ValueError(
@@ -267,11 +285,11 @@ def load_lib(name: str, hidden: int, obs: int, compute_dtype: str):
     """The library of gradient kernel ``name`` (its `source` for this
     width) at the instantiation for this width, obs width and precision,
     its width and depth checked against the weight pack's (a wide library
-    reports the widest it takes)."""
+    reports the multiple every width runs padded to, `WIDE_STEP`)."""
     defines = library(hidden, obs, compute_dtype)
     lib = _build.load(source(name, hidden), defines)
     got = [lib.ppo_grad_config(i) for i in range(4)]
-    width = WIDE_MAX if is_wide(hidden) else kernel_width(hidden)
+    width = WIDE_STEP if is_wide(hidden) else kernel_width(hidden)
     want = [width, obs, defines[0][1], kernel_depth(hidden, obs)]
     if got != want:
         raise RuntimeError(f"the {name} library's instantiation {got} is not the wrapper's {want}")
@@ -280,7 +298,8 @@ def load_lib(name: str, hidden: int, obs: int, compute_dtype: str):
 
 def instantiation(lib) -> dict:
     """A gradient library's instantiation as its header derived it
-    (`ppo_grad_config`): width, obs, bf16, depth K1, weight-gradient slices
+    (`ppo_grad_config`): width (on a wide library the multiple every width
+    runs padded to), obs, bf16, depth K1, weight-gradient slices
     NS, whether W1 and W2 sit in shared memory, its shared memory in bytes,
     and whether the obs are too wide to stage (``wide``)."""
     return {k: lib.ppo_grad_config(i) for i, k in enumerate(CONFIG)}
@@ -296,15 +315,17 @@ def launch_buffers(lib, leaves: list, device: torch.device, mb: int):
     """What a gradient launch over ``mb`` rows needs beside its inputs: the
     (2, PACK) weight pack, the chunk walkers per head G and the workspace,
     both as the library sizes them (`ppo_grad_walkers`,
-    `ppo_grad_work_floats`)."""
+    `ppo_grad_work_floats`; on the wide design under 8 GB to about 31,600
+    units, `csrc/ppo_grad_wide.cuh:walkers`). Where the card lacks the
+    memory, an error names the bytes."""
     hidden = leaves[0].shape[0]
     pack = _pack(leaves)
     if pack.shape[1] != lib.ppo_grad_pack_floats(hidden):
         raise RuntimeError("weight pack size disagrees with the kernel's")
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     ctas = lib.ppo_grad_walkers(hidden, sms, mb)
-    work = torch.empty(lib.ppo_grad_work_floats(hidden, mb, ctas), dtype=torch.float32,
-                       device=device)
+    work = device_buffer(lib.ppo_grad_work_floats(hidden, mb, ctas), device,
+                         "gradient workspace", hidden)
     return pack, ctas, work
 
 
@@ -400,8 +421,7 @@ def fused_ppo_grad_t(model_or_leaves, obs_t: torch.Tensor, aux_t: torch.Tensor,
     leaves = _leaves(model_or_leaves)
     if not supports(obs_t, leaves, tile):
         raise ValueError(
-            "the ppo_fused_t kernel takes hidden widths up to 1024, 4 actions and a tile "
-            "dividing B; got leaves "
+            "the ppo_fused_t kernel takes 4 actions and a tile dividing B; got leaves "
             f"{[tuple(l.shape) for l in leaves[:1]]}, obs {tuple(obs_t.shape)}, tile {tile}"
         )
     actor_sum, critic_sum, rmax, mb, grads = _launch(

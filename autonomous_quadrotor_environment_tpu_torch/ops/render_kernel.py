@@ -5,8 +5,9 @@ package. `render_nadir_batch` computes one (3, H, W) image per env from
 the env's camera position, marker position and brightness:
 
 * on CUDA tensors, as one launch of the hand-written kernel in
-  `csrc/render_nadir.cu` (a CTA per band of rows of an image: the column
-  and row terms once, then the pixels from them; NCHW output);
+  `csrc/render_nadir.cu` (a CTA per band of rows and span of columns of
+  an image: the column and row terms once, then the pixels from them;
+  NCHW output; any image size);
 * on CPU tensors, as its plain version `render_nadir_batch_plain`
   (`render/scene.py:render_nadir` with the same arguments), which is also
   the reference the kernel is held against on the card.
@@ -23,8 +24,6 @@ from ..config import CameraConfig, MarkerConfig
 from ..render.camera import make_camera
 from ..render.scene import render_nadir
 from . import _build
-
-MAX_WIDTH = 256  # the widest image the kernel's column terms hold
 
 
 def _geometry(cam: CameraConfig, marker: MarkerConfig) -> dict:
@@ -56,9 +55,6 @@ def _launch(quad_pos_env, marker_xy, cam, marker, ground_z_env, brightness):
     _check("marker_xy", marker_xy, (b, 2), device)
     if brightness is not None:
         _check("brightness", brightness, (b,), device)
-    if cam.width > MAX_WIDTH:
-        raise ValueError(f"the render kernel takes images up to {MAX_WIDTH} pixels wide, "
-                         f"not {cam.width}")
     out = torch.empty(b, 3, cam.height, cam.width, dtype=torch.float32, device=device)
     g = _geometry(cam, marker)
     lib = _build.load("render_nadir")

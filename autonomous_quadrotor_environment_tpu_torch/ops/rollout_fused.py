@@ -11,10 +11,12 @@ auto-reset -- for B envs over T steps:
   inside the loop and the critic over the stored observations after it.
   The kernel is built per hidden width in `WIDTHS`; a model of any width
   up to 256 runs on the next one up, its weights zero-padded
-  (`weight_pack`), which changes no output. Wider models, up to
-  `WIDE_MAX`, run on `csrc/rollout_wide.cu` (the weights streamed through
-  shared memory), which reads its width at run time and takes any
-  multiple of `WIDE_STEP`: a model runs zero-padded on the next one;
+  (`weight_pack`), which changes no output. Wider models, of any width,
+  run on `csrc/rollout_wide.cu` (the weights streamed through shared
+  memory; above 512 units the tile's h1 in a scratch in device memory
+  unless the envs fill one wave of 32-env tiles, which hold it to 1152),
+  which reads its width at run time and takes any multiple of
+  `WIDE_STEP`: a model runs zero-padded on the next one;
 * on CPU tensors, as `rollout_plain`, a Python loop of exactly the per-step
   body below (the counterpart of the JAX package's `rollout_twin`), which
   is also the reference the kernel is held against on the card.
@@ -49,15 +51,18 @@ ROWS = 128
 OBS = 75
 MISC = 16
 WIDTHS = (32, 64, 128, 256)  # the hidden widths the narrow kernels are built for
-# The wide rollout (`csrc/rollout_wide.cu`) takes widths from WIDE_FROM to
-# WIDE_MAX, padded to a multiple of WIDE_STEP, as the wide gradient kernels
+# The wide rollout (`csrc/rollout_wide.cu`) takes every width from
+# WIDE_FROM, padded to a multiple of WIDE_STEP, as the wide gradient kernels
 # do (from `ppo_fused_t.WIDE_FROM`). At 256 the 256 instantiation stays: it
 # took 25.02 ms at bench.py's shape against the wide design's 33.32 ms
 # (`chip_smoke.py` kernel_options on an NVIDIA H100 80GB HBM3 at 700 W).
-WIDE_FROM, WIDE_STEP, WIDE_MAX = WIDTHS[-1] + 1, 128, 1024
+WIDE_FROM, WIDE_STEP = WIDTHS[-1] + 1, 128
 WIDE_K1 = -(-OBS // 32) * 32  # the wide rollout's input depth (96)
 ACT = 4
 _LOG_2PI = math.log(2.0 * math.pi)
+# The kernels' offsets within one head's arrays (a weight pack, a partial
+# of the gradients' workspace, their flat output) are 32-bit floats.
+INT32_MAX = 2 ** 31 - 1
 
 # Row offsets in the packed state (see module docstring).
 _POS, _VEL, _QUAT, _OMEGA = 0, 3, 6, 10
@@ -587,11 +592,34 @@ def is_wide(hidden: int) -> bool:
 def kernel_width(hidden: int) -> int:
     """The width a model of ``hidden`` units runs on: the smallest of
     `WIDTHS` that holds it, or on the wide rollout ``hidden`` rounded up to
-    `WIDE_STEP` (either is the wide gradient kernels' width too); 0 above
-    `WIDE_MAX` (ROADMAP B, hidden widths above 1024)."""
+    `WIDE_STEP` (either is the wide gradient kernels' width too)."""
     if not is_wide(hidden):
         return next(w for w in WIDTHS if hidden <= w)
-    return -(-hidden // WIDE_STEP) * WIDE_STEP if hidden <= WIDE_MAX else 0
+    return -(-hidden // WIDE_STEP) * WIDE_STEP
+
+
+def check_offsets(what: str, floats: int, hidden: int) -> None:
+    """Raise unless an array of ``floats`` floats of a model of ``hidden``
+    units is one that the kernels' 32-bit offsets address, naming the bytes
+    it needs: the one limit on a width the kernels have besides the card's
+    memory."""
+    if floats > INT32_MAX:
+        raise ValueError(
+            f"a model of {hidden} hidden units needs {4 * floats} bytes of {what}, more "
+            f"than the kernels' 32-bit offsets address ({4 * INT32_MAX} bytes)"
+        )
+
+
+def device_buffer(floats: int, device: torch.device, what: str, hidden: int) -> torch.Tensor:
+    """An uninitialised float32 buffer of ``floats`` on ``device``; where the
+    card's memory cannot hold it, an error naming the bytes it needs."""
+    try:
+        return torch.empty(floats, dtype=torch.float32, device=device)
+    except torch.cuda.OutOfMemoryError as err:
+        raise RuntimeError(
+            f"a model of {hidden} hidden units needs {4 * floats} bytes of {what} on "
+            f"{device}, more than it has free"
+        ) from err
 
 
 def source(hidden: int) -> str:
@@ -665,9 +693,9 @@ def _launch(s0, noise, pool, wT, C, action_std):
         raise ValueError("wT must hold the 12 transposed ActorCritic leaves")
     hidden = wT[0].shape[0]
     width = kernel_width(hidden)
-    if not width:
-        raise ValueError(f"the rollout kernel takes hidden widths up to {WIDE_MAX}, not "
-                         f"{hidden} (ROADMAP B, hidden widths above 1024)")
+    wide = is_wide(hidden)
+    k1 = WIDE_K1 if wide else 80
+    check_offsets("weight pack a head", pack_offsets(width, k1)["PACK"], hidden)
     for i, (w, shape) in enumerate(zip(wT, _leaf_shapes(hidden))):
         if w.device != device or w.dtype != torch.float32 or tuple(w.shape) != shape:
             raise ValueError(
@@ -676,11 +704,14 @@ def _launch(s0, noise, pool, wT, C, action_std):
             )
     name = source(hidden)
     lib = _build.load(name, library(hidden))
-    wide = is_wide(hidden)
-    pack = weight_pack(wT, width, WIDE_K1 if wide else 80)
+    pack = weight_pack(wT, width, k1)
     want = lib.rollout_wide_pack_floats(hidden) if wide else lib.rollout_fused_pack_floats()
     if pack.shape[1] != want:
         raise RuntimeError("weight pack size disagrees with the kernel's")
+    if wide:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        scratch = device_buffer(max(lib.rollout_wide_scratch_floats(hidden, b, steps, sms), 1),
+                                device, "rollout scratch (h1 of each CTA)", hidden)
 
     obs = torch.empty(steps, OBS, b, dtype=torch.float32, device=device)
     misc = torch.empty(steps, MISC, b, dtype=torch.float32, device=device)
@@ -693,7 +724,7 @@ def _launch(s0, noise, pool, wT, C, action_std):
                 b, steps, p_size, ctypes.addressof(consts),
                 action_std, math.log(action_std) + 0.5 * _LOG_2PI)
         if wide:
-            err = lib.rollout_wide(*args, hidden, device.index, stream)
+            err = lib.rollout_wide(*args, hidden, scratch.data_ptr(), sms, device.index, stream)
         else:
             err = lib.rollout_fused(*args, device.index, stream)
     if err != 0:

@@ -34,7 +34,8 @@ It imports nothing of JAX. Each phase prints one flushed JSON line:
    with its sign flips counted; times and both bounds at both large shapes.
 5. render_vs_plain: the render kernel (B5) against its plain version on the
    same CUDA tensors at B=100 and B=4096 seeded poses (heights 0.01-7 m,
-   markers N(0, 0.8), brightness 0.5-1.2): max abs error, pixels above
+   markers N(0, 0.8), brightness 0.5-1.2) on the landing camera (84 x 84),
+   and at B=14 on the mission camera (480 x 480): max abs error, pixels above
    1e-5, a bit-equal relaunch; times against the bound, bytes per second;
    the kernel's device time per call from the profiler beside the time per
    call by CUDA events (at B=100 the host's launch sets the latter).
@@ -123,13 +124,13 @@ It imports nothing of JAX. Each phase prints one flushed JSON line:
    own compilations disagree on (`CLASSICAL_UNHELD`); each leg's seconds.
 21. control_graph_vs_eager: `rollout_batch` at the trainer's envs for
    GRAPH_T steps (1024 x 32; calm and robust, reset pool 0 and 4, some 120
-   episode ends each) and `_fly` at 256
-   episodes (calm and windy) replayed from their CUDA graphs
+   episode ends each) and `_fly` at 256 episodes of at most
+   GRAPH_EVAL_STEPS = 300 steps (calm and windy) replayed from their CUDA graphs
    (`utils.graphs`) and run eagerly, from the same generator seed: every
    output bit-equal; a warm call's ms both ways; a replaced parameter
    raises.
-22. missions: `apps.missions_eval.main` at full size (14 episodes x 5000
-   steps): the PID and the solved fixture on the true state, per episode
+22. missions: `apps.missions_eval.main` (14 episodes, the first 2500 of
+   their 5000 steps): the PID and the solved fixture on the true state, per episode
    within 2% of the JAX package's CPU tracking errors; with --sensors at
    seeds 0, 1 and 2, the mean within 3 standard errors of the JAX CPU's
    3-seed mean.
@@ -157,23 +158,26 @@ It imports nothing of JAX. Each phase prints one flushed JSON line:
 27. dp: data-parallel train steps (`parallel.dp`) on every card, one rank
    each over NCCL, and on a machine of one card also on 2 ranks of it over
    gloo (`dp_worlds`), the kernels built first here and the ranks started
-   by `parallel.launch.spawn`: per rank 3 fully fused steps at bench.py's
-   global shape (1 B1 and 40 B2 launches a step) and 3 row-major steps at
-   the trainer's defaults with fused_update and fused_adam (10 B3, no B4:
+   by `parallel.launch.spawn`: per rank 2 fully fused steps at bench.py's
+   global shape (1 B1 and 40 B2 launches a step) and 2 row-major steps at
+   the trainer's defaults but 32-step rollouts (DP_ROWMAJOR_T) with
+   fused_update and fused_adam (10 B3, no B4:
    the Adam step inside B4 would not see the reduced gradient); parameters
    equal on every rank after every step; the averaged gradient of one
    minibatch within 1e-4 relative Frobenius of the single-process
    gradient of all ranks' rows; warm ms per step.
-28. dp_cli: `train_control --dp <cards> --robust --curriculum 0,1` (4
-   updates) and `train_landing --dp <cards>` (2 updates at its defaults):
-   files, checkpoints read back, B5's launches per rank.
+28. dp_cli: `train_control --dp <cards> --robust --curriculum 0,1` (2
+   updates, an eval after each) and `train_landing --dp <cards>` (1
+   update at its defaults, an eval after it): files, checkpoints read
+   back, B5's launches per rank.
 29. stacked: S = 4 seeds at the trainer's defaults through
    `agents.multiseed`: the init bit-equal to `ppo_init` per seed, one
    stacked update against 4 serial ones, graphs against eager bit-equal,
-   no kernel launch; warm ms per stacked update at S = 1, 4 and 30 against
-   train_rowmajor's serial update; micro `seed_study`, `lr_sweep` and
-   `size_sweep`, --stacked and serial; the seed-parallel loop over the dp
-   world with the collectives patched to raise.
+   no kernel launch; warm ms per stacked update at S = 1 and 4 (one
+   update after the capturing one) against train_rowmajor's serial
+   update; micro `seed_study`, `lr_sweep` and `size_sweep`, --stacked and
+   serial; the seed-parallel loop over the dp world (32-step rollouts)
+   with the collectives patched to raise.
 
 30. kernel_options (run after learn_rowmajor): the kernels' options beyond
    the trainer's defaults. B1 at hidden 32, 64 and 256 against its plain
@@ -193,7 +197,12 @@ It imports nothing of JAX. Each phase prints one flushed JSON line:
    counted fully fused step at hidden 512 (B1 held to its plain version at
    8192 x 256 at the slice phase's gates, B2 at the bench minibatch) and
    the counted row-major steps at hidden 512 with B4 and 1024 with B3
-   (each held and timed on its step's 16,384-row batch).
+   (each held and timed on its step's 16,384-row batch). Above 1024 units:
+   B1 at 1152, 2048 and 4096, B2 at 1152, 2048, 4096, 2048 with obs 180
+   and 2048 in bf16, B3 and B4 at 2048 and 4096, B2 and B3 held to their
+   plain versions run in float64 (KO_F64_FROM), B4 to the f32 plain step
+   with no sign flip from a warmed state; two counted steps at 2048 on KO_WIDE_STEP's reduced
+   shape, fully fused and row-major with B4.
 
 The step loops of the trainer's rollout (`rollout_batch`), its eval
 (`_fly`), the landing interval and the classical, mission (the hybrid one
@@ -232,6 +241,7 @@ from autonomous_quadrotor_environment_tpu_torch.agents.ppo import (
     rollout_batch_fused,
 )
 from autonomous_quadrotor_environment_tpu_torch.config import (
+    CameraConfig,
     EnvConfig,
     PPOConfig,
     RandomizationConfig,
@@ -275,7 +285,11 @@ LEARN_ROWMAJOR_FIRST_EVAL = 400  # the row-major learn phase evaluates from here
 LAND_EPISODES, LAND_DECISIONS = 100, 152
 LAND_SOLVED, ORACLE_SOLVED = 0.93, 0.95  # the reference's 93.5% bar; the oracle's
 LANDING_TRAIN_B = 128  # the landing trainer's envs in the JAX package's certified runs
-RENDER_BATCHES = (100, 4096)  # the eval's batch, and a large one
+# B5's comparisons: (B, camera) at the eval's batch and a large one on the
+# landing camera (84 x 84), and at the missions' 14 episodes on the mission
+# camera (480 x 480, `apps/missions_eval.py`).
+RENDER_CASES = ((100, CameraConfig()), (4096, CameraConfig()),
+                (14, CameraConfig(width=480, height=480)))
 # Float operations of the render kernel per pixel, each sinf/cosf counted
 # as one (which keeps the bound a lower bound): 2 for the height, 8 for
 # the hit point, 2 for the footprint, 2+2 offsets, 2x18 for the square
@@ -443,12 +457,19 @@ def compare(kernel_out, plain_out, atol: float, rtol: float, rate_atol: float = 
 
 
 def kernel_and_plain(cfg, model, states, gen, steps, pool_size):
+    """The rollout kernel and its plain version on the same inputs: the
+    inputs, both outputs, and the plain version's ms by CUDA events (the
+    time of this one call: at these shapes its host-bound Python loop takes
+    seconds, and timing it again would only repeat them)."""
     s0, noise, pool, wT = fused_inputs(model, states, gen, cfg, steps, pool_size)
     out_k = rf.fused_rollout(s0, noise, pool, wT, cfg, ACTION_STD)
     sync()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
     out_p = rf.rollout_plain(s0, noise, pool, wT, rf._scalars(cfg), ACTION_STD)
+    end.record()
     sync()
-    return (s0, noise, pool, wT), out_k, out_p
+    return (s0, noise, pool, wT), out_k, out_p, start.elapsed_time(end)
 
 
 # ---------------------------------------------------------------------------
@@ -482,7 +503,9 @@ def _ptxas(name: str, defines: tuple, info: dict) -> dict:
         "nvcc_seconds": info["seconds"],
         "cached": info["cached"],
         "entries": _ptxas_entries(log),
-        "dynamic_smem_bytes": getattr(lib, f"{name}_smem_bytes")(),
+        # the render kernel's depends on the image width: the landing camera's
+        "dynamic_smem_bytes": getattr(lib, f"{name}_smem_bytes")(
+            *((CameraConfig().width,) if name == "render_nadir" else ())),
         "ptxas": [l.strip() for l in log.splitlines() if "ptxas" in l or "spill" in l],
     }
 
@@ -518,7 +541,7 @@ def phase_kernel_vs_plain() -> dict:
         model = ActorCritic(hidden=128, action_std=ACTION_STD).to(DEVICE)
         gen = torch.Generator(device=DEVICE).manual_seed(12)
         states = hover.reset(gen, cfg, n=1024)
-        _, out_k, out_p = kernel_and_plain(cfg, model, states, gen, steps=32, pool_size=4)
+        _, out_k, out_p, _ = kernel_and_plain(cfg, model, states, gen, steps=32, pool_size=4)
         res = compare(out_k, out_p, atol=1e-4, rtol=1e-4)
         dones = float(out_p[2][:, 10].sum())
         res.update(bb_scale=bb_scale, dones=dones, max_slot=float(out_p[0][rf._SLOT].max()))
@@ -700,14 +723,19 @@ def metric_errors(loss, met, lp, mp, aux) -> tuple[dict, dict]:
 
 def grad_compare(model, obs_t, aux_t, blocks, tile: int, kernel=None, plain=None,
                  phase: str = "grad_t_vs_plain", compute: str = "f32",
-                 leaf_tol: float = 1e-4) -> dict:
+                 leaf_tol: float = 1e-4, f64: bool = False) -> dict:
     """A gradient kernel (B2 by default, or ``kernel`` with its ``plain``
     version) against its plain version on the same tensors, both with
     products in ``compute``: loss and metrics within rtol 1e-4 (as
     `metric_errors` holds them), each gradient leaf within a relative
     Frobenius error of ``leaf_tol`` (sums over up to 5e5 rows cancel, so an
     elementwise rtol is the wrong yardstick at that size). A second launch
-    must give the same bits: the reduction runs in a fixed order."""
+    must give the same bits: the reduction runs in a fixed order.
+
+    ``f64``: the plain version runs on float64 copies of the model and the
+    inputs, and is the yardstick (kernel_options above 1024 units, see
+    KO_F64_FROM); the f32 plain version's own errors against it are
+    reported beside the kernel's."""
     kernel = kernel or pf.fused_ppo_grad_t
     plain = plain or pf.ppo_grad_t_plain
     kw = dict(tile=tile, action_std=ACTION_STD, clip_eps=CLIP_EPS, entropy_coef=ENTROPY_COEF,
@@ -716,6 +744,11 @@ def grad_compare(model, obs_t, aux_t, blocks, tile: int, kernel=None, plain=None
     loss2, _, grads2 = kernel(model, obs_t, aux_t, blocks, **kw)
     sync()
     lp, mp, gp = plain(model, obs_t, aux_t, blocks, **kw)
+    plain_f32 = None
+    if f64:
+        plain_f32 = gp
+        lp, mp, gp = plain(copy.deepcopy(model).double(), obs_t.double(), aux_t.double(),
+                           blocks, **kw)
     sync()
     deterministic = bool(torch.equal(loss, loss2)) and all(
         torch.equal(a, b) for a, b in zip(grads, grads2))
@@ -732,8 +765,10 @@ def grad_compare(model, obs_t, aux_t, blocks, tile: int, kernel=None, plain=None
         "rel_err": rel, "held_err": held, "leaf_rel_fro": leaf_fro,
         "leaf_max_abs_err": leaf_abs,
         "max_abs_err": max(leaf_abs), "deterministic": deterministic,
-        "ratio_max": met["ratio_max"].item(),
+        "ratio_max": met["ratio_max"].item(), "reference": "f64" if f64 else "f32",
     }
+    if f64:
+        out["plain_f32_leaf_rel_fro"] = [rel_fro(a.double(), b) for a, b in zip(plain_f32, gp)]
     bad = {k: v for k, v in held.items() if not v <= 1e-4}
     if bad or not max(leaf_fro) <= leaf_tol or not deterministic:
         emit({"phase": phase, "failed": out})
@@ -1050,15 +1085,13 @@ def phase_slice() -> dict:
             raise AssertionError(f"main path {name} has non-finite values")
 
     gen = torch.Generator(device=DEVICE).manual_seed(2)
-    (s0, noise, pool, wT), out_k, out_p = kernel_and_plain(
+    (s0, noise, pool, wT), out_k, out_p, plain_ms = kernel_and_plain(
         cfg, model, states, gen, BENCH_T, BENCH_P
     )
     res = compare(out_k, out_p, atol=1e-3, rtol=1e-3)
     del out_k, out_p
 
     ms = time_cuda(lambda: rf.fused_rollout(s0, noise, pool, wT, cfg, ACTION_STD), 2, 5)
-    C = rf._scalars(cfg)
-    plain_ms = time_cuda(lambda: rf.rollout_plain(s0, noise, pool, wT, C, ACTION_STD), 1, 2)
     # Where the main path's time goes, warm: the whole call, and the part
     # that builds the kernel's inputs (noise, the reset pool with its
     # warmup steps, packing); the rest is the kernel plus unpack/bootstrap.
@@ -1342,7 +1375,7 @@ def phase_learn(phase: str = "learn", first_eval: int = 0, **flags) -> dict:
                        fused_rollout=True, fused_pool=4)
     model, opt, state = ppo.ppo_init(LEARN_SEED, env_cfg, pcfg, tcfg, device=DEVICE)
     step = ppo.make_train_step(model, opt, env_cfg, pcfg, tcfg)
-    branch = ppo.train_branch(model, opt, env_cfg, pcfg, tcfg)
+    branch = ppo.train_branch(model, env_cfg, pcfg, tcfg)
     update = "ppo_fused_t" if branch == "fused_t" else {
         "fused": "ppo_fused", "fused_adam": "ppo_fused_adam"}[ppo.update_plan(
             pcfg, LEARN_B * LEARN_T).branch]
@@ -1395,8 +1428,9 @@ def phase_learn(phase: str = "learn", first_eval: int = 0, **flags) -> dict:
 KO_ROLLOUT = dict(B=1024, T=32, P=4)   # B1's comparisons at each new width
 # Each instantiated width, and widths 16 and 200 that run zero-padded on
 # the 32- and 256-wide instantiations; then the wide design at 512 and 1024
-# and at 300 and 700, which run zero-padded on 384 and 768.
-KO_WIDTHS = (32, 64, 256, 16, 200, 512, 1024, 300, 700)
+# (h1 in shared memory to 512, in device memory wider) and at 300 and 700,
+# which run zero-padded on 384 and 768; above 1024 at 1152, 2048 and 4096.
+KO_WIDTHS = (32, 64, 256, 16, 200, 512, 1024, 300, 700, 1152, 2048, 4096)
 # The Euler-rate rows' extra tolerance in B1's comparisons (`compare`): 16
 # ulps of an angle near pi (2^-22 each) over dt = 0.01, 3.8e-4. Earlier
 # runs on an H100 80GB HBM3 at 700 W saw rate errors of 2.3e-4 to 3.1e-4
@@ -1405,25 +1439,38 @@ RATE_ATOL = 16 * 2.0 ** -22 / EnvConfig().dt
 # B2's cases on seeded transposed data (T, B): (tile, hidden, obs); tiles
 # 8, 24 and 18 (4-byte copies: B and the tile are not multiples of 4) at
 # hidden 128, at tile 128 hidden 32 and 16 (zero-padded on 32), then on the
-# wide design 256, 200 (on 256), 200 with obs 180, 512, 1024, 300 (on 384)
-# and 512 with obs 180.
+# wide design 256, 200 (on 256), 200 with obs 180, 512, 1024, 300 (on 384),
+# 512 with obs 180, 1152, 2048, 4096 and 2048 with obs 180.
 KO_B2 = ((8, 1536, 8, 128, 75), (8, 1536, 24, 128, 75), (8, 1026, 18, 128, 75),
          (8, 1536, 128, 32, 75), (8, 1536, 128, 256, 75), (8, 1536, 128, 16, 75),
          (8, 1536, 128, 200, 75), (8, 1536, 128, 200, 180), (8, 1536, 128, 512, 75),
-         (8, 1536, 128, 1024, 75), (8, 1536, 128, 300, 75), (8, 1536, 128, 512, 180))
-# B2's bf16 cases: (hidden, obs), the narrow trainer's width and the wide 512.
-KO_B2_BF16 = ((128, 75), (512, 75))
+         (8, 1536, 128, 1024, 75), (8, 1536, 128, 300, 75), (8, 1536, 128, 512, 180),
+         (8, 1536, 128, 1152, 75), (8, 1536, 128, 2048, 75), (8, 1536, 128, 4096, 75),
+         (8, 1536, 128, 2048, 180))
+# B2's bf16 cases: (hidden, obs), the narrow trainer's width and the wide
+# 512 and 2048.
+KO_B2_BF16 = ((128, 75), (512, 75), (2048, 75))
 # B3/B4's cases on seeded row-major rows: (obs, hidden, compute); obs 60,
 # bf16, width 16 (zero-padded on 32) and obs 300 at 100 (on the 128-wide
 # instantiation, read in place); on the wide design 256, 200, obs 180 at
-# 200, 512, 1024 and obs 150 at 512.
+# 200, 512, 1024, obs 150 at 512, 2048 and 4096.
 KO_ROWMAJOR_GRADS = ((60, 128, "f32"), (75, 256, "f32"), (75, 128, "bf16"), (75, 16, "f32"),
                      (75, 200, "f32"), (180, 200, "f32"), (300, 100, "f32"),
-                     (75, 512, "f32"), (75, 1024, "f32"), (150, 512, "f32"))
+                     (75, 512, "f32"), (75, 1024, "f32"), (150, 512, "f32"),
+                     (75, 2048, "f32"), (75, 4096, "f32"))
 KO_B2_BLOCKS = 200  # a shuffled subset: chunks gather blocks, the last one ragged
 KO_ROWS = 7680      # B3/B4's seeded row-major rows, tile 40 (chunks span blocks)
 KO_TILE, KO_ROW_BLOCKS = 40, 29
 KO_BF16_TOL = 1e-3  # bf16 cases: leaves within this relative Frobenius error
+# From this width B2's and B3's cases are held to the plain version run in
+# float64 (`grad_compare`'s f64; B4's Adam step stays held to the f32 plain
+# step, sign flips and all). At 4096 the critic's bias gradients, sums over
+# the 12,288 seeded rows, cancel some 17,000-fold (the value's mean nearly
+# equals the returns': `scripts/wide_grad_accuracy.py`), and the f32 plain
+# version's own error on b1 reached 1.08e-4 of the float64 result, the
+# tolerance itself; the kernel sat at 2.4e-5 to 7.4e-5 on those leaves
+# (NVIDIA H100 80GB HBM3, 700 W).
+KO_F64_FROM = 1025
 # The warm fully fused steps at bench.py's shape: (name, hidden, compute).
 KO_STEPS = (("hidden64", 64, "f32"), ("hidden256", 256, "f32"), ("bf16", 128, "bf16"),
             ("hidden512", 512, "f32"))
@@ -1437,6 +1484,11 @@ KO_ROWMAJOR = (("obs60_b3", 4, 128, "f32", False), ("obs60_b4", 4, 128, "f32", T
                ("bf16_b3", 5, 128, "bf16", False), ("hidden16_b4", 5, 16, "f32", True),
                ("hidden200_obs180_b4", 12, 200, "f32", True), ("hidden512_b4", 5, 512, "f32", True),
                ("hidden1024_b3", 5, 1024, "f32", False))
+# The counted steps at hidden 2048 (B1's h1 in device memory), on a shape
+# cut from bench.py's so that they take seconds: 1024 envs x 32 steps, K =
+# 2 epochs of 2 minibatches of 16,384 rows, tile 128; fully fused (1 B1
+# and 4 B2 launches a step) and row-major with B1 and B4 (1 B1, 4 B4).
+KO_WIDE_STEP = dict(hidden=2048, B=1024, T=32, K=2, minibatches=2, tile=128)
 
 
 def _seeded_t(steps: int, b: int, seed: int, obs_dim: int = pf.OBS):
@@ -1477,10 +1529,13 @@ def _grad_row(kernel: str, model, compute: str, cmp: dict, ms: float, plain_ms: 
                                           adam=adam, obs=obs_dim)
     source = "ppo_fused_t" if kernel == "ppo_fused_t" else "ppo_fused"
     lib = pf.load_lib(source, model.hidden, obs_dim, compute)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    walkers = lib.ppo_grad_walkers(model.hidden, sms, cmp["rows"])
     return {
         "kernel": kernel, "source": pf.source(source, model.hidden), "hidden": model.hidden,
         "obs": obs_dim, "compute": compute,
-        "instantiation": pf.instantiation(lib),
+        "instantiation": pf.instantiation(lib), "walkers": walkers,
+        "work_bytes": 4 * lib.ppo_grad_work_floats(model.hidden, cmp["rows"], walkers),
         "compare": cmp, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by,
         "tc_bound_ms": grad_tc_bound(cmp["rows"], model.hidden, compute, obs_dim),
@@ -1499,14 +1554,13 @@ def _ko_rollout(hidden: int) -> dict:
         model = _model(hidden, 11)
         gen = torch.Generator(device=DEVICE).manual_seed(12)
         states = hover.reset(gen, cfg, n=b)
-        inputs, out_k, out_p = kernel_and_plain(cfg, model, states, gen, steps=t, pool_size=p)
+        inputs, out_k, out_p, plain_ms = kernel_and_plain(cfg, model, states, gen, steps=t,
+                                                          pool_size=p)
         res = compare(out_k, out_p, atol=1e-4, rtol=1e-4, rate_atol=RATE_ATOL)
         res["bb_scale"] = bb_scale
         runs.append(res)
     s0, noise, pool, wT = inputs
     ms = time_cuda(lambda: rf.fused_rollout(s0, noise, pool, wT, cfg, ACTION_STD), 1, 5)
-    plain_ms = time_cuda(lambda: rf.rollout_plain(s0, noise, pool, wT, rf._scalars(cfg),
-                                                  ACTION_STD), 0, 1)
     bound_ms, bound_by, _, _ = bound(b, t, p, hidden)
     return {"kernel": "rollout_fused", "source": rf.source(hidden), "hidden": hidden,
             "B": b, "T": t, "runs": runs, "max_abs_err": max(r["max_abs_err"] for r in runs),
@@ -1530,7 +1584,7 @@ def _ko_b2(steps: int, b: int, tile: int, hidden: int, obs_dim: int, compute: st
     blocks = blocks.to(torch.int32)
     tol = KO_BF16_TOL if compute == "bf16" else 1e-4
     cmp = grad_compare(model, obs, aux, blocks, tile, phase="kernel_options",
-                       compute=compute, leaf_tol=tol)
+                       compute=compute, leaf_tol=tol, f64=hidden >= KO_F64_FROM)
     kw = dict(tile=tile, compute_dtype=compute, **ROW_KW)
     ms = time_cuda(lambda: pf.fused_ppo_grad_t(model, obs, aux, blocks, **kw), 2, 10)
     plain_ms = time_cuda(lambda: pf.ppo_grad_t_plain(model, obs, aux, blocks, **kw), 1, 3)
@@ -1549,7 +1603,8 @@ def _ko_rowmajor_grads(obs_dim: int, hidden: int, compute: str) -> list:
     blocks = perm[:KO_ROW_BLOCKS]
     tol = KO_BF16_TOL if compute == "bf16" else 1e-4
     cmp = grad_compare(model, obs, aux, blocks, KO_TILE, pr.fused_ppo_grad,
-                       pr.ppo_grad_plain, "kernel_options", compute, tol)
+                       pr.ppo_grad_plain, "kernel_options", compute, tol,
+                       f64=hidden >= KO_F64_FROM)
     warm = [perm[KO_ROW_BLOCKS * (i + 1): KO_ROW_BLOCKS * (i + 2)] for i in range(3)]
     adam_warm = adam_compare(copy.deepcopy(model), obs, aux, blocks, KO_TILE, warm,
                              compute, tol, "kernel_options")
@@ -1655,6 +1710,32 @@ def _ko_steps() -> list:
     return rows
 
 
+def _ko_wide_steps() -> list:
+    """Two train steps per branch at KO_WIDE_STEP, every launch counter set
+    to 0 just before each and read just after: fully fused (1 B1, K x
+    minibatches B2) and row-major with B1 and B4 (1 B1, K x minibatches
+    B4); finite metrics, the parameters moved (`counted_steps`)."""
+    w = KO_WIDE_STEP
+    n_updates = w["K"] * w["minibatches"]
+    rows = []
+    for name, adam in ((f"hidden{w['hidden']}_fused", False), (f"hidden{w['hidden']}_b4", True)):
+        env_cfg = EnvConfig(n_steps=1000)
+        pcfg = PPOConfig(k_epochs=w["K"], minibatch_size=w["B"] * w["T"] // w["minibatches"],
+                         fused_update=True, fused_adam=adam, shuffle_block=w["tile"])
+        tcfg = TrainConfig(num_envs=w["B"], rollout_steps=w["T"], network_size=w["hidden"],
+                           fused_rollout=True, fused_pool=BENCH_P)
+        model, opt, state = ppo.ppo_init(1, env_cfg, pcfg, tcfg, device=DEVICE)
+        branch = ppo.train_branch(model, env_cfg, pcfg, tcfg)
+        step = ppo.make_train_step(model, opt, env_cfg, pcfg, tcfg)
+        want = launches_want(rollout_fused=1,
+                             **{"ppo_fused_adam" if adam else "ppo_fused_t": n_updates})
+        _, step_ms, launches, metrics, peak = counted_steps(step, state, model, 2, want)
+        rows.append({"case": name, "branch": branch, **w, "launches_per_step": launches,
+                     "step_ms": step_ms, "metrics": metrics, "peak_memory_bytes": peak})
+        del model, opt, state, step
+    return rows
+
+
 def _ko_rowmajor() -> list:
     """Two row-major train steps per KO_ROWMAJOR case at the trainer's
     defaults but KO_ROWMAJOR_T steps a rollout (1024 envs, full batch,
@@ -1721,13 +1802,15 @@ def phase_kernel_options() -> dict:
     """The kernel options beyond the trainer's defaults (hidden widths 32,
     64 and 256 and widths run zero-padded on them, obs 60 and wide obs, any
     B2 tile, bf16 products; the wide designs at 512 and 1024, at 300 and 700
-    zero-padded, with bf16 and wide obs), each against its plain version,
-    at the counted steps' shapes too, in train steps with
-    their launches counted, and the bf16 learning gate (phase_learn with
-    fused_compute="bf16")."""
+    zero-padded, with bf16 and wide obs, and above 1024: 1152, 2048 and
+    4096), each against its plain version, at the counted steps' shapes
+    too, in train steps with their launches counted (at 2048 on
+    KO_WIDE_STEP's reduced shape), and the bf16 learning gate (phase_learn
+    with fused_compute="bf16")."""
     t0 = time.perf_counter()
     out = {"phase": "kernel_options", "card": card(), "rollouts": _ko_rollouts(),
-           "grads": _ko_grads(), "steps": _ko_steps(), "rowmajor": _ko_rowmajor()}
+           "grads": _ko_grads(), "steps": _ko_steps(), "wide_steps": _ko_wide_steps(),
+           "rowmajor": _ko_rowmajor()}
     out["learn_bf16"] = phase_learn("learn_bf16", fused_compute="bf16")
     out["seconds"] = time.perf_counter() - t0
     emit(out)
@@ -1821,12 +1904,13 @@ def render_poses(b: int, seed: int):
     return quad, marker, bright
 
 
-def render_bound(b: int, brightness: bool) -> tuple[float, str, float, float]:
+def render_bound(b: int, brightness: bool, height: int = 84,
+                 width: int = 84) -> tuple[float, str, float, float]:
     """The least time the card could take for one render: the larger of the
-    bytes (each env's 5 or 6 input floats read once, the (B, 3, 84, 84)
+    bytes (each env's 5 or 6 input floats read once, the (B, 3, H, W)
     float32 image written once) over the memory rate, and
     RENDER_OPS_PER_PIXEL float operations per pixel over the f32 peak."""
-    pixels = float(b) * 84 * 84
+    pixels = float(b) * height * width
     bytes_ = 4.0 * (b * (6 if brightness else 5) + 3 * pixels)
     ops = RENDER_OPS_PER_PIXEL * pixels
     t_ops, t_bytes = ops / PEAK_F32_FLOPS, bytes_ / PEAK_HBM_BYTES
@@ -1835,7 +1919,10 @@ def render_bound(b: int, brightness: bool) -> tuple[float, str, float, float]:
 
 def phase_render_vs_plain() -> dict:
     """B5 against its plain version on the same CUDA tensors at B=100 (the
-    eval's batch) and B=4096; tolerance atol 1e-4: the image is continuous
+    eval's batch) and B=4096 on the landing camera and at B=14 on the
+    mission camera (480 x 480, two 21-row bands short of a multiple and
+    wider than the 256 pixels the kernel once held); tolerance atol 1e-4:
+    the image is continuous
     in the pose (the smooth steps blend across every edge), so FMA
     contraction and the sin/cos libraries move pixels by a little, most
     near the ground, where a footprint of height/fx makes the edges
@@ -1843,14 +1930,15 @@ def phase_render_vs_plain() -> dict:
     be bit-equal. Times by CUDA events against the bound."""
     t0 = time.perf_counter()
     runs = []
-    for b in RENDER_BATCHES:
+    for b, cam in RENDER_CASES:
         quad, marker, bright = render_poses(b, seed=20 + b)
-        got = rk.render_nadir_batch(quad, marker, brightness=bright)
-        again = rk.render_nadir_batch(quad, marker, brightness=bright)
+        kw = dict(cam=cam, brightness=bright)
+        got = rk.render_nadir_batch(quad, marker, **kw)
+        again = rk.render_nadir_batch(quad, marker, **kw)
         sync()
-        want = rk.render_nadir_batch_plain(quad, marker, brightness=bright)
+        want = rk.render_nadir_batch_plain(quad, marker, **kw)
         sync()
-        if got.shape != (b, 3, 84, 84) or not torch.isfinite(got).all():
+        if got.shape != (b, 3, cam.height, cam.width) or not torch.isfinite(got).all():
             raise AssertionError(f"B5 at B={b}: bad shape {tuple(got.shape)} or non-finite")
         if got.min().item() < 0.0 or got.max().item() > 1.0:
             raise AssertionError(f"B5 at B={b}: pixels outside [0, 1]")
@@ -1860,14 +1948,13 @@ def phase_render_vs_plain() -> dict:
             raise AssertionError(f"B5 at B={b}: max abs err {max_err:.3e} > 1e-4")
         if not torch.equal(got, again):
             raise AssertionError(f"B5 at B={b}: a relaunch is not bit-equal")
-        ms = time_cuda(lambda: rk.render_nadir_batch(quad, marker, brightness=bright), 10, 200)
+        ms = time_cuda(lambda: rk.render_nadir_batch(quad, marker, **kw), 10, 200)
         device_ms = device_ms_per_call(
-            lambda: rk.render_nadir_batch(quad, marker, brightness=bright), "render_nadir", 50)
-        plain_ms = time_cuda(lambda: rk.render_nadir_batch_plain(quad, marker, brightness=bright),
-                             2, 10)
-        bound_ms, bound_by, ops, bytes_ = render_bound(b, brightness=True)
+            lambda: rk.render_nadir_batch(quad, marker, **kw), "render_nadir", 50)
+        plain_ms = time_cuda(lambda: rk.render_nadir_batch_plain(quad, marker, **kw), 2, 10)
+        bound_ms, bound_by, ops, bytes_ = render_bound(b, True, cam.height, cam.width)
         runs.append({
-            "B": b, "max_abs_err": max_err, "pixels_above_1e-5": int((diff > 1e-5).sum()),
+            "B": b, "height": cam.height, "width": cam.width, "max_abs_err": max_err, "pixels_above_1e-5": int((diff > 1e-5).sum()),
             "pixels": diff.numel(), "bit_equal_relaunch": True,
             "min_height_m": (quad[:, 2] + 5.0).min().item(),
             "kernel_ms": ms, "kernel_device_ms": device_ms, "plain_ms": plain_ms,
@@ -2173,7 +2260,7 @@ def phase_robust_train() -> dict:
         model, opt, state = ppo.ppo_init(5, ROBUST_ENV, pcfg, tcfg, device=DEVICE)
         if not state.env_states.dom.mass_factor.abs().max().item() > 0:
             raise AssertionError("the robust env batch has no randomized domains")
-        branch = ppo.train_branch(model, opt, ROBUST_ENV, pcfg, tcfg)
+        branch = ppo.train_branch(model, ROBUST_ENV, pcfg, tcfg)
         step = ppo.make_train_step(model, opt, ROBUST_ENV, pcfg, tcfg)
         state, step_ms, launches, metrics, peak = counted_steps(step, state, model, 3, want)
         runs[name] = {"branch": branch, "step_ms": step_ms,
@@ -2505,15 +2592,19 @@ def _bit_equal(a, b) -> bool:
 
 # control_graph_vs_eager's rollout steps: the trainer's 1024 envs, its 128
 # steps cut to 32 (each capture and eager run scales with the steps) to keep
-# the script inside its time limit.
+# the script inside its time limit; and its evals' episode length, 1000 cut
+# to 300 for the same reason (the eager windy eval took 12.0 s of the
+# phase's 49.8, its episodes 684 steps long on average).
 GRAPH_T = 32
+GRAPH_EVAL_STEPS = 300
 
 
 def phase_control_graph_vs_eager() -> dict:
     """`rollout_batch` at the trainer's envs and GRAPH_T steps (1024 x 32;
     calm and robust, reset pool 0 and 4, the seed-6 model) and `_fly` at 256
-    episodes (the solved fixture calm, the robust fixture in the windy env,
-    through `make_forensic_eval_fn`), each once replayed from its CUDA
+    episodes of at most GRAPH_EVAL_STEPS steps (the solved fixture calm, the
+    robust fixture in the windy env, through `make_forensic_eval_fn`), each
+    once replayed from its CUDA
     graphs and once eagerly (`utils.graphs.eager`), from generators with the
     same seed: every output must be bit-equal. The first graphed call's
     seconds (it captures), and a warm call's ms both ways. Then a parameter
@@ -2546,8 +2637,10 @@ def phase_control_graph_vs_eager() -> dict:
                              "first_call_s": capture_s, "graph_ms": graph_ms,
                              "eager_ms": eager_ms, "speedup": eager_ms / graph_ms,
                              "episodes": int(got[1].dones.sum())})
-    for env_name, cfg, policy in (("calm", EnvConfig(n_steps=1000), SOLVED_CONTROLLER),
-                                  ("windy", ROBUST_ENV, ROBUST_CONTROLLER)):
+    for env_name, cfg, policy in (
+            ("calm", EnvConfig(n_steps=GRAPH_EVAL_STEPS), SOLVED_CONTROLLER),
+            ("windy", dataclasses.replace(ROBUST_ENV, n_steps=GRAPH_EVAL_STEPS),
+             ROBUST_CONTROLLER)):
         from autonomous_quadrotor_environment_tpu_torch.apps.robust_eval import load_policy
 
         model = load_policy(policy, 128, DEVICE)
@@ -2595,13 +2688,18 @@ def phase_control_graph_vs_eager() -> dict:
 
 # The JAX package's own CPU runs of apps/classical_compare.py (the RL leg
 # flying the solved fixture), apps/missions_eval.py and
-# apps/step_response.py, printed by `python scripts/classical_reference.py`:
-# each classical leg's final norms ||last[0:4]|| in episode order, each
-# mission episode's mean tracking error (seed 0; the true-state modes draw
+# apps/step_response.py, printed by `python scripts/classical_reference.py
+# --mission-steps 2500`: each classical leg's final norms ||last[0:4]|| in
+# episode order, each mission episode's mean tracking error over the
+# missions' first MISSIONS_STEPS (seed 0; the true-state modes draw
 # nothing), the --sensors mean at seeds 0, 1 and 2, and the step-response
 # metrics (2000 steps, amplitude 1). The port's CPU run agrees with these
-# within 6.2e-4 relative on every classical episode, 4.9e-4 on every
+# within 6.2e-4 relative on every classical episode, 7.2e-4 on every
 # mission episode and 1.8e-7 on every step-response metric.
+# The missions fly their first 2500 steps of 5000, so that the script fits
+# its time limit with kernel_options' widths above 1024 (the full missions
+# took 160.5-182.3 s of it on an NVIDIA H100 80GB HBM3 at 700 W).
+MISSIONS_STEPS = 2500
 CLASSICAL_REF = {
     "lqr": [
         0.1281491219997406, 0.02652582712471485, 0.020423835143446922, 0.014316183514893055,
@@ -2653,26 +2751,27 @@ CLASSICAL_RATES_REF = {
 }
 MISSIONS_REF = {
     "pid": [
-        3.5015065691368363e-07, 0.01894240640103817, 0.01298508420586586, 0.020602619275450706,
-        0.02287733182311058, 0.012739359401166439, 0.032068416476249695, 0.020155632868409157,
-        0.013521173037588596, 0.0400591604411602, 0.03644474595785141, 0.05856340378522873,
-        0.18124736845493317, 0.17913903295993805,
+        3.4238294688293536e-07, 0.03788396716117859, 0.025968698784708977, 0.04120245203375816,
+        0.04575394466519356, 0.02547725848853588, 0.06411052495241165, 0.02017931081354618,
+        0.013716857880353928, 0.041314996778964996, 0.03646731749176979, 0.058493901044130325,
+        0.18124474585056305, 0.17967861890792847,
     ],
     "rl": [
-        0.00039657694287598133, 0.020568424835801125, 0.010089677758514881,
-        0.028296414762735367, 0.02164442464709282, 0.010827307589352131, 0.03748000040650368,
-        0.020117389038205147, 0.00971407350152731, 0.018249966204166412, 0.015690075233578682,
-        0.023156777024269104, 0.07123301923274994, 0.07000245153903961,
+        0.00041517725912854075, 0.04075886681675911, 0.01980135403573513, 0.05621536821126938,
+        0.042908601462841034, 0.02127607725560665, 0.07458993792533875, 0.022005273029208183,
+        0.010767116211354733, 0.019728023558855057, 0.016236962750554085, 0.023694230243563652,
+        0.07381640374660492, 0.07274025678634644,
     ],
 }
 MISSIONS_SENSORS_REF = {
-    0: 3.491274220602853,
-    1: 2.762747253690447,
-    2: 2.732458438192095,
+    0: 0.9064689832074302,
+    1: 0.6857493668794632,
+    2: 0.6380168146320752,
 }
 # The JAX package's CPU numbers for the hybrid mode and the vision pipeline,
-# printed by `python scripts/vision_reference.py`: each seed's mean tracking
-# error with --vision, the mean INS error of both sensor modes, and
+# printed by `python scripts/vision_reference.py --steps 2500`: each seed's
+# mean tracking error with --vision over MISSIONS_STEPS, the mean INS error
+# of both sensor modes, and
 # `vision_pose` (missions camera, 480 x 480, body-attached) at 64 poses: the
 # three round trips of the JAX package's tests/test_vision.py, 13 level
 # poses at 1-4 m, 40 tilted by up to 15 degrees, 8 with the board out of view.
@@ -2873,13 +2972,13 @@ VISION_REF = [  # (ok, env-frame position, quaternion, rms), float32 values
      (0.7746083, 0.5220887, 0.296345, 0.19895987), 38.082516),
 ]
 MISSIONS_VISION_REF = {
-    0: 2.128033130828823,
-    1: 1.6264813650133354,
-    2: 1.8646638255034174,
+    0: 0.5613036054585662,
+    1: 0.4527774096599647,
+    2: 0.5439336635172367,
 }
 MISSIONS_INS_REF = {  # mean INS position error (log column 17)
-    'rl_sens': {0: 3.4743244562830244, 1: 2.749466304268156, 2: 2.7256429195404053},
-    'rl_vis': {0: 2.1020263195969164, 1: 1.6022152033235346, 2: 1.8413279335945845},
+    'rl_sens': {0: 0.8880756050348282, 1: 0.6698005774191448, 2: 0.6235997123377663},
+    'rl_vis': {0: 0.5278230211032289, 1: 0.42341579576688154, 2: 0.5150946171821228},
 }
 STEP_RESPONSE_REF = {
     "step_x": {"rise_s": 0.51, "settling_s": 0.9,
@@ -2989,8 +3088,9 @@ def phase_classical() -> dict:
 
 
 def phase_missions() -> dict:
-    """`apps.missions_eval.main` at full size (14 episodes as one batch x
-    5000 steps, 100-step graph replays): the PID and the solved fixture on
+    """`apps.missions_eval.main` at full width (14 episodes as one batch, the
+    missions' first MISSIONS_STEPS steps, 100-step graph replays): the PID
+    and the solved fixture on
     the true state, each episode's mean tracking error and their mean
     within MISSIONS_RTOL of the JAX package's CPU numbers; the fixture on
     the fused sensor estimate (--sensors) at seeds 0, 1 and 2, whose mean
@@ -3017,7 +3117,7 @@ def phase_missions() -> dict:
                              for s in MISSIONS_SENSORS_REF)):
             sync()
             t = time.perf_counter()
-            res = missions_eval.main(argv + ["--out", tmp])
+            res = missions_eval.main(argv + ["--steps", str(MISSIONS_STEPS), "--out", tmp])
             seconds[name] = time.perf_counter() - t
             runs[name] = [r["mean_track_err"] for r in res["episodes"]]
             if "mean_ins_err" in res:
@@ -3057,7 +3157,7 @@ def phase_missions() -> dict:
     if launches != launches_want():
         bad.append(f"the missions launched {launches}, want none")
     out = {"phase": "missions", "seconds": time.perf_counter() - t0, "card": card(),
-           "episodes": len(runs["pid"]), "steps": missions_eval.MISSION_STEPS,
+           "episodes": len(runs["pid"]), "steps": MISSIONS_STEPS,
            "mean_track_err": {k: sum(v) / len(v) for k, v in runs.items()},
            "jax_cpu_mean_track_err": {k: sum(v) / len(v) for k, v in MISSIONS_REF.items()},
            "max_rel_err": {m: max(abs(g - w) / abs(w) for g, w in zip(runs[m], want))
@@ -3168,11 +3268,7 @@ def phase_vision() -> dict:
     100-step CUDA graphs and run eagerly from the same draws: bit-equal."""
     from autonomous_quadrotor_environment_tpu_torch.apps import missions_eval as me
     from autonomous_quadrotor_environment_tpu_torch.apps.robust_eval import load_policy
-    from autonomous_quadrotor_environment_tpu_torch.config import (
-        CameraConfig,
-        MarkerConfig,
-        SensorConfig,
-    )
+    from autonomous_quadrotor_environment_tpu_torch.config import MarkerConfig, SensorConfig
     from autonomous_quadrotor_environment_tpu_torch.vision import vision_pose
 
     t0 = time.perf_counter()
@@ -3345,7 +3441,11 @@ def phase_apps() -> dict:
 # ---------------------------------------------------------------------------
 
 DP_TIMEOUT, DP_DEADLINE = 600.0, 900.0  # each collective's wait; a world's whole run
-DP_STEPS = 3
+DP_STEPS = 2
+# The rollout depth of the row-major dp steps and the seed-parallel loop:
+# the trainer's 128 steps cut to 32, so that each world captures a short
+# rollout graph (a 128-step capture took 6-8 s on an H100 80GB HBM3).
+DP_ROWMAJOR_T = 32
 
 
 def dp_worlds() -> list:
@@ -3403,12 +3503,13 @@ def _dp_grad_check(mesh, model, grads: list, obs: torch.Tensor, aux: torch.Tenso
 
 
 def dp_rank(mesh) -> dict:
-    """One rank of a dp world: 3 fully fused dp steps at bench.py's global
-    shape (its envs a 1/world slice, quarter-batch minibatches of its rows)
-    and 3 row-major dp steps at the trainer's defaults with fused_update and
-    fused_adam (B3 runs, B4 must not: the Adam step cannot see the reduced
-    gradient), each followed by the averaged gradient of one minibatch
-    against the single-process gradient of the same rows."""
+    """One rank of a dp world: DP_STEPS fully fused dp steps at bench.py's
+    global shape (its envs a 1/world slice, quarter-batch minibatches of its
+    rows) and DP_STEPS row-major dp steps at the trainer's defaults but
+    DP_ROWMAJOR_T steps a rollout, with fused_update and fused_adam (B3
+    runs, B4 must not: the Adam step cannot
+    see the reduced gradient), each followed by the averaged gradient of
+    one minibatch against the single-process gradient of the same rows."""
     torch.backends.cuda.matmul.allow_tf32 = False
     from autonomous_quadrotor_environment_tpu_torch.parallel import dp
 
@@ -3418,7 +3519,7 @@ def dp_rank(mesh) -> dict:
     local = BENCH_B // mesh.size
     pcfg = dataclasses.replace(pcfg, minibatch_size=local * BENCH_T // 4)
     model, opt, state = dp.ppo_init_sharded(1, env_cfg, pcfg, tcfg, mesh)
-    branch = ppo.train_branch(model, opt, env_cfg, pcfg, tcfg, local, reduced=True)
+    branch = ppo.train_branch(model, env_cfg, pcfg, tcfg, local)
     step = dp.make_parallel_train_step(model, opt, env_cfg, pcfg, tcfg, mesh)
     fused = _dp_steps(mesh, step, state, model,
                       launches_want(rollout_fused=1, ppo_fused_t=BENCH_K * 4))
@@ -3444,14 +3545,16 @@ def dp_rank(mesh) -> dict:
 
     env_cfg, pcfg, tcfg = trainer_configs()
     pcfg = dataclasses.replace(pcfg, fused_adam=True)
+    tcfg = dataclasses.replace(tcfg, rollout_steps=DP_ROWMAJOR_T)
     local = LEARN_B // mesh.size
     model, opt, state = dp.ppo_init_sharded(2, env_cfg, pcfg, tcfg, mesh)
     step = dp.make_parallel_train_step(model, opt, env_cfg, pcfg, tcfg, mesh)
-    plan = ppo.update_plan(pcfg, LEARN_T * local, plain_adam=pr.adam_takes(opt, model),
+    plan = ppo.update_plan(pcfg, DP_ROWMAJOR_T * local, plain_adam=pr.adam_takes(opt, model),
                            reduced=True)
     rowmajor = _dp_steps(mesh, step, state, model, launches_want(ppo_fused=pcfg.k_epochs))
     state = rowmajor.pop("state")
-    _, roll, boot = ppo.rollout_batch(model, state.env_states, state.gen, env_cfg, LEARN_T)
+    _, roll, boot = ppo.rollout_batch(model, state.env_states, state.gen, env_cfg,
+                                      DP_ROWMAJOR_T)
     returns, advs = gae_advantages(roll.rewards, roll.values, roll.dones, boot,
                                    pcfg.gamma, pcfg.gae_lambda)
     obs = roll.obs.reshape(-1, pf.OBS).contiguous()
@@ -3505,8 +3608,9 @@ def phase_dp() -> dict:
 
 def phase_dp_cli() -> dict:
     """The trainers' entry points with ``--dp <cards>``: `train_control
-    --robust --curriculum 0,1` for 4 updates (as train_cli: no kernel) and
-    `train_landing` for 2 updates at its defaults with one 20-episode eval.
+    --robust --curriculum 0,1` for 2 updates with an eval after each (as
+    train_cli, which runs 4, but no kernel) and
+    `train_landing` for 1 update at its defaults with one 20-episode eval.
     Files written by rank 0 as the serial runs write them, the final
     checkpoints read back equal to the ones saved at the last eval (the
     parameters did not move after it), and B5's launches per rank: 1 for
@@ -3529,7 +3633,7 @@ def phase_dp_cli() -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         t_c = time.perf_counter()
         control = train_control.main(["--dp", str(world), "--robust", "--curriculum", "0,1",
-                                      "--updates", "4", "--eval-every", "2",
+                                      "--updates", "2", "--eval-every", "1",
                                       "--eval-episodes", "16", "--out", tmp])
         control_s = time.perf_counter() - t_c
         files = sorted(os.path.relpath(os.path.join(d, f), tmp)
@@ -3546,7 +3650,7 @@ def phase_dp_cli() -> dict:
     if any(any(r.values()) for r in control["ranks"]):
         bad.append(f"train_control --dp launched {control['ranks']}, want no kernel")
 
-    updates, eval_every = 2, 2
+    updates, eval_every = 1, 1
     with tempfile.TemporaryDirectory() as tmp:
         t_l = time.perf_counter()
         landing = train_landing.main(["--dp", str(world), "--controller", SOLVED_CONTROLLER,
@@ -3566,7 +3670,7 @@ def phase_dp_cli() -> dict:
     if got_b5 != want_b5:
         bad.append(f"train_landing --dp: B5 launches per rank {got_b5}, want {want_b5}")
     if lfiles != ["PPO_landing_0.msgpack", "PPO_landing_best_0.msgpack",
-                  "train_landing_0.jsonl"] or [r["update"] for r in rows] != [2] or not all(
+                  "train_landing_0.jsonl"] or [r["update"] for r in rows] != [updates] or not all(
             math.isfinite(v) for r in rows for v in r.values()) or not lreadback:
         bad.append(f"train_landing --dp wrote {lfiles}, rows {rows}, read back: {lreadback}")
     out = {"phase": "dp_cli", "seconds": time.perf_counter() - t0, "card": card(),
@@ -3581,7 +3685,7 @@ def phase_dp_cli() -> dict:
 
 
 STACKED_SEEDS = (0, 1, 2, 3)
-STACKED_SIZES = (1, 4, 30)  # seeds in the timed stacked updates
+STACKED_SIZES = (1, 4)  # seeds in the timed stacked updates
 
 
 def _stacked_state(seeds, pcfg=None):
@@ -3623,9 +3727,10 @@ def phase_stacked(serial_ms: float) -> dict:
       same rows, each seed's parameters within lr * 0.05 but for at most
       1e-4 of the entries (Adam's step is near lr * sign(g) where g is near
       0, so last-bit differences of the stacked products flip it);
-    - the stacked rollout and eval from their CUDA graphs and eagerly:
-      bit-equal; no kernel launch in the stacked step;
-    - warm ms per stacked update at S = 1, 4 and 30 against the serial
+    - the stacked rollout and eval (episodes of at most GRAPH_EVAL_STEPS
+      steps) from their CUDA graphs and eagerly: bit-equal; no kernel
+      launch in the stacked step;
+    - warm ms per stacked update at S = 1 and 4 against the serial
       update's ``serial_ms`` in this run (train_rowmajor's trainer
       defaults);
     - micro `seed_study`, `lr_sweep` and `size_sweep`, --stacked (2 seeds,
@@ -3689,7 +3794,8 @@ def phase_stacked(serial_ms: float) -> dict:
     if not rollout_graph_equal:
         bad.append("the stacked rollout's graph differs from eager")
 
-    ev = multiseed.make_multiseed_eval_fn(model, env_cfg, LEARN_EPISODES)
+    ev = multiseed.make_multiseed_eval_fn(
+        model, dataclasses.replace(env_cfg, n_steps=GRAPH_EVAL_STEPS), LEARN_EPISODES)
     gens = lambda: [torch.Generator(device=DEVICE).manual_seed(100 + s) for s in STACKED_SEEDS]
     ev_graph = ev(gens())
     with graphs.eager():
@@ -3705,12 +3811,10 @@ def phase_stacked(serial_ms: float) -> dict:
         step = multiseed.make_multiseed_train_step(m, o, e, p, tc)
         st, _ = step(st)  # the rollout graph's capture
         sync()
-        ms = []
-        for _ in range(2):
-            t_u = time.perf_counter()
-            st, met = step(st)
-            sync()
-            ms.append((time.perf_counter() - t_u) * 1e3)
+        t_u = time.perf_counter()
+        st, met = step(st)
+        sync()
+        ms = [(time.perf_counter() - t_u) * 1e3]
         timed[n_seeds] = {"update_ms": ms, "per_seed_ms": ms[-1] / n_seeds,
                           "vs_serial": ms[-1] / (n_seeds * serial_ms),
                           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
@@ -3786,7 +3890,8 @@ def _stacked_apps() -> dict:
 def seed_parallel_rank(mesh) -> dict:
     """The seed-parallel loop on this rank with `torch.distributed`'s
     collectives patched to raise: 2 seeds per rank, 2 stacked updates at
-    the trainer's defaults; and an uneven split refused."""
+    the trainer's defaults but DP_ROWMAJOR_T steps a rollout; and an uneven
+    split refused."""
     import torch.distributed as dist
 
     from autonomous_quadrotor_environment_tpu_torch.parallel import multiseed as pm
@@ -3795,6 +3900,7 @@ def seed_parallel_rank(mesh) -> dict:
         raise AssertionError("a collective in the seed-parallel loop")
 
     env_cfg, _, tcfg = trainer_configs()
+    tcfg = dataclasses.replace(tcfg, rollout_steps=DP_ROWMAJOR_T)
     pcfg = PPOConfig(lr=LEARN_LR, k_epochs=10)
     seeds = list(range(2 * mesh.size))
     saved = {n: getattr(dist, n) for n in ("all_reduce", "broadcast", "all_gather")}
@@ -3910,7 +4016,7 @@ def main() -> int:
     # bench minibatch.
     b3, b4 = rvp["trainer_times"], rvp["bench_times"]
     # B5's times and bound at the eval's B=100, its error over the sweep.
-    b5 = next(r for r in rnd["runs"] if r["B"] == LAND_EPISODES)
+    b5 = next(r for r in rnd["runs"] if r["B"] == LAND_EPISODES and r["width"] == 84)
     b5_err = max(r["max_abs_err"] for r in rnd["runs"])
     emit({"kernels": [
         entry("rollout_fused", fused["rollout_fused"], max_err, sl["kernel_ms"],

@@ -16,11 +16,14 @@ It prints one JSON object per line, each named by ``"what"``. These are
 the reference numbers that the PyTorch port's `chip_smoke.py` classical,
 missions and step_response phases hold the card to (the card has no JAX,
 so that script carries them as constants). Runs on the CPU in a few
-minutes:
+minutes; ``--parts`` picks some of the three, ``--mission-steps`` flies the
+missions' first steps only (`chip_smoke.py` holds the card to 2500):
 
-    python scripts/classical_reference.py
+    python scripts/classical_reference.py [--parts classical,missions,step_response]
+        [--mission-steps 2500]
 """
 
+import argparse
 import json
 import os
 import sys
@@ -49,24 +52,35 @@ def emit(what: str, **fields) -> None:
 
 
 def main():
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--parts", default="classical,missions,step_response")
+    p.add_argument("--mission-steps", type=int, default=missions_eval.MISSION_STEPS)
+    args = p.parse_args()
+    parts = args.parts.split(",")
     with tempfile.TemporaryDirectory() as out:
-        summary = classical_compare.main(["--legs", "all", "--policy", POLICY, "--out", out])
-        for leg, row in summary.items():
-            log = np.load(f"{out}/{leg}_log_same_start.npz")["arr_0"]
-            norms = np.linalg.norm(log[:, -1, 0:4], axis=1)
-            emit("classical", leg=leg, success_rate=row["success_rate"],
-                 final_norms=[float(x) for x in norms])
-        for mode, argv in (("pid", []), ("rl", ["--policy", POLICY])):
-            res = missions_eval.main(argv + ["--out", out])
-            emit("missions", mode=mode, seed=0, mean_track_err=res["mean_track_err"],
-                 episodes=[r["mean_track_err"] for r in res["episodes"]])
-        for seed in SENSOR_SEEDS:
-            res = missions_eval.main(["--policy", POLICY, "--sensors", "--seed", str(seed),
-                                      "--out", out])
-            emit("missions", mode="rl_sens", seed=seed, mean_track_err=res["mean_track_err"],
-                 episodes=[r["mean_track_err"] for r in res["episodes"]])
-    emit("step_response", steps=2000, amplitude=1.0,
-         metrics=step_response.main(["--policy", POLICY]))
+        if "classical" in parts:
+            summary = classical_compare.main(["--legs", "all", "--policy", POLICY, "--out", out])
+            for leg, row in summary.items():
+                log = np.load(f"{out}/{leg}_log_same_start.npz")["arr_0"]
+                norms = np.linalg.norm(log[:, -1, 0:4], axis=1)
+                emit("classical", leg=leg, success_rate=row["success_rate"],
+                     final_norms=[float(x) for x in norms])
+        steps = ["--steps", str(args.mission_steps), "--out", out]
+        if "missions" in parts:
+            for mode, argv in (("pid", []), ("rl", ["--policy", POLICY])):
+                res = missions_eval.main(argv + steps)
+                emit("missions", mode=mode, seed=0, steps=args.mission_steps,
+                     mean_track_err=res["mean_track_err"],
+                     episodes=[r["mean_track_err"] for r in res["episodes"]])
+            for seed in SENSOR_SEEDS:
+                res = missions_eval.main(["--policy", POLICY, "--sensors", "--seed", str(seed)]
+                                         + steps)
+                emit("missions", mode="rl_sens", seed=seed, steps=args.mission_steps,
+                     mean_track_err=res["mean_track_err"],
+                     episodes=[r["mean_track_err"] for r in res["episodes"]])
+    if "step_response" in parts:
+        emit("step_response", steps=2000, amplitude=1.0,
+             metrics=step_response.main(["--policy", POLICY]))
 
 
 if __name__ == "__main__":

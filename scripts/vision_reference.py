@@ -16,10 +16,12 @@ It prints one JSON object per line, each named by ``"what"``, and the
 seconds each part took. These are the reference numbers that the PyTorch
 port's `chip_smoke.py` vision and missions phases hold the card to (the
 card has no JAX, so that script carries them as constants). A vision
-mission seed takes minutes on a CPU (7,000 renders at 480 x 480);
-``--seeds`` and ``--parts`` split the work across processes:
+mission seed takes minutes on a CPU (7,000 renders at 480 x 480 over 5000
+steps); ``--seeds`` and ``--parts`` split the work across processes, and
+``--steps`` flies the missions' first steps only (`chip_smoke.py` holds
+the card to 2500):
 
-    python scripts/vision_reference.py [--parts poses,missions] [--seeds 0,1,2]
+    python scripts/vision_reference.py [--parts poses,missions] [--seeds 0,1,2] [--steps 2500]
 """
 
 import argparse
@@ -110,15 +112,13 @@ def run_poses():
          seconds=time.time() - t0)
 
 
-def run_missions(seeds):
-    env_cfg = EnvConfig(n_steps=missions_eval.MISSION_STEPS, direct_control=True,
-                        training=False)
+def run_missions(seeds, steps: int = missions_eval.MISSION_STEPS):
+    env_cfg = EnvConfig(n_steps=steps, direct_control=True, training=False)
     model = ActorCritic(hidden=128)
     params = load_params(POLICY, model.init(jax.random.PRNGKey(0), jnp.zeros((1, 75))))
     for mode, vision in (("rl_sens", False), ("rl_vis", True)):
         runner = missions_eval.make_rl_mission_runner(
-            env_cfg, model, params, SensorConfig(), True, missions_eval.MISSION_STEPS,
-            use_vision=vision)
+            env_cfg, model, params, SensorConfig(), True, steps, use_vision=vision)
         for seed in seeds:
             t0 = time.time()
             track, ins = [], []
@@ -128,21 +128,22 @@ def run_missions(seeds):
                 log = np.asarray(runner(traj, key))
                 track.append(float(log[:, 16].mean()))
                 ins.append(float(log[:, 17].mean()))
-            emit("missions", mode=mode, seed=seed, mean_track_err=float(np.mean(track)),
-                 mean_ins_err=float(np.mean(ins)), episodes=track, ins_episodes=ins,
-                 seconds=time.time() - t0)
+            emit("missions", mode=mode, seed=seed, steps=steps,
+                 mean_track_err=float(np.mean(track)), mean_ins_err=float(np.mean(ins)),
+                 episodes=track, ins_episodes=ins, seconds=time.time() - t0)
 
 
 def main():
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--parts", default="poses,missions")
     p.add_argument("--seeds", default=",".join(map(str, SEEDS)))
+    p.add_argument("--steps", type=int, default=missions_eval.MISSION_STEPS)
     args = p.parse_args()
     parts = args.parts.split(",")
     if "poses" in parts:
         run_poses()
     if "missions" in parts:
-        run_missions([int(s) for s in args.seeds.split(",")])
+        run_missions([int(s) for s in args.seeds.split(",")], args.steps)
 
 
 if __name__ == "__main__":

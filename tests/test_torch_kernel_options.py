@@ -1,7 +1,10 @@
 """The kernel options beyond the trainer's defaults, on the CPU, against the
 JAX package: bf16 products in B2-B4 (`PPOConfig.fused_compute="bf16"`),
-hidden widths 16, 256 and 320 (B1-B4; 320 on the card's wide design), obs
-60 (hist_t=4) in B3/B4, and B2 tiles 8 and 24. Each case feeds numpy-seeded inputs to the JAX kernel run in interpret
+hidden widths 16, 256, 320 and 1100 (B1-B4; 320 and 1100 on the card's
+wide design, 1100 above the 1024 units it once stopped at), obs 60
+(hist_t=4) in B3/B4, and B2 tiles 8 and 24; and, in pure Python, the
+widths the card's kernels run a model on and the one width limit left.
+Each case feeds numpy-seeded inputs to the JAX kernel run in interpret
 mode (as tests/test_ops.py runs it) and to the port's plain version, which
 is what the card's kernels are held against; and one whole train step with
 bf16 products on each branch against JAX's.
@@ -12,8 +15,8 @@ Tolerances:
   bf16 and sum in f32, so only the f32 sum order differs (measured: 8e-8
   on the loss, 2e-7 on a metric, 2.6e-7 on a leaf, against 4.7e-3 and
   6.4e-3 between the bf16 and the f32 gradients);
-- widths 16, 256 and 320 (B4's new params and moments too, from a warmed
-  state), obs 60 and the tiles: the step-math tolerance of `torch_parity`
+- widths 16, 256, 320 and 1100 (B4's new params and moments too, from a
+  warmed state), obs 60 and the tiles: the step-math tolerance of `torch_parity`
   (rtol 2e-4, atol 2e-5), on each gradient entry and the rollout's outputs;
 - the bf16 train steps: JAX's own bf16 bounds (tests/test_ops.py:183-191),
   the loss within rtol 2e-2 and the parameters within 5 lr;
@@ -26,8 +29,9 @@ Tolerances:
 
 The two whole train steps take most of this file's time (about 14 s each
 in a run of the whole file, JAX compiling its interpret-mode kernels); the
-rest about 50 s, of it 9 s the four cases at hidden 320 (B2 3.8 s, B3 1.2,
-B1 1.9, B4 2.1 on one pytest worker on the CPU).
+rest about 70 s, of it 9 s the four cases at hidden 320 (B2 3.8 s, B3 1.2,
+B1 1.9, B4 2.1 on one pytest worker on the CPU) and 20 s the four at 1100
+(B1 10.0 s, B2 6.3, B4 2.2, B3 1.2).
 """
 
 import functools
@@ -192,12 +196,13 @@ def test_bf16_grad_adam_matches_jax():
             assert _rel_fro(n(g), w) <= 1e-3, (what, name)
 
 
-@pytest.mark.parametrize("hidden", [16, 256, 320])
+@pytest.mark.parametrize("hidden", [16, 256, 320, 1100])
 @pytest.mark.parametrize("kernel", ["b2", "b3"])
 def test_width_grad_matches_jax(kernel, hidden):
     """The gradient of the fully fused step (B2) and of the row-major step
-    (B3) at hidden 16, 256 and 320, which the card runs zero-padded on its
-    32-wide instantiation and on the wide design (at 256 and 384)."""
+    (B3) at hidden 16, 256, 320 and 1100, which the card runs zero-padded on
+    its 32-wide instantiation and on the wide design (at 256, 384 and
+    1152)."""
     params = _params(hidden, seed=3)
     obs, aux = _rows(ROWS if kernel == "b3" else T_STEPS * B_ENVS, 75, 3)
     if kernel == "b2":
@@ -210,10 +215,11 @@ def test_width_grad_matches_jax(kernel, hidden):
     _assert_leaves_step_math(jax_side, port_side)
 
 
-@pytest.mark.parametrize("hidden", [16, 256, 320])
+@pytest.mark.parametrize("hidden", [16, 256, 320, 1100])
 def test_width_rollout_matches_jax(hidden):
     """The rollout of the fully fused step (B1's plain version) at hidden
-    16, 256 and 320 (the wide rollout's, zero-padded to 384) against the
+    16, 256, 320 and 1100 (the wide rollout's, zero-padded to 384 and 1152)
+    against the
     JAX package's `rollout_twin`, 8 steps from JAX's reset states, noise and
     pool."""
     b, steps = 16, 8
@@ -233,11 +239,13 @@ def test_width_rollout_matches_jax(hidden):
     np.testing.assert_array_equal(n(misc_t[:, 10:11]), np.asarray(done_j))
 
 
-def test_width_grad_adam_matches_jax():
-    """B4's plain version at hidden 320 (the wide design's, zero-padded to
-    384) against JAX's `fused_ppo_grad_adam`, from a warmed Adam state: the
-    new params, mu and nu at the step-math tolerance."""
-    params = _params(320, seed=6)
+@pytest.mark.parametrize("hidden", [320, 1100])
+def test_width_grad_adam_matches_jax(hidden):
+    """B4's plain version at hidden 320 and 1100 (the wide design's,
+    zero-padded to 384 and 1152) against JAX's `fused_ppo_grad_adam`, from a
+    warmed Adam state: the new params, mu and nu at the step-math
+    tolerance."""
+    params = _params(hidden, seed=6)
     obs, aux = _rows(ROWS, 75, 6)
     blocks = np.asarray([3, 0, 7, 5, 1, 10], np.int32)
     rng = np.random.default_rng(6)
@@ -256,6 +264,26 @@ def test_width_grad_adam_matches_jax():
     for what, got, want in (("params", p_t, p_j), ("mu", mu_t, mu_j), ("nu", nu_t, nu_j)):
         for name, g, w in zip(LEAVES, got, _flat(want)):
             np.testing.assert_allclose(n(g), w, rtol=RTOL, atol=ATOL, err_msg=f"{what} {name}")
+
+
+def test_kernel_width_pads_every_wide_width():
+    """Every width from 1025 to 4096 runs on the next multiple of 128, which
+    holds it: no width is refused."""
+    for hidden in range(1025, 4097):
+        width = trf.kernel_width(hidden)
+        assert width % 128 == 0 and hidden <= width < hidden + 128, hidden
+
+
+def test_check_fits_names_the_bytes_of_a_width_past_the_offsets():
+    """The one width limit left: an array past the kernels' 32-bit offsets
+    (the gradients' flat output at about 2 hidden^2 floats), refused with
+    the bytes it needs; 4096 and 32,000 pass."""
+    for hidden in (1100, 4096, 32000):
+        tpf.check_fits(hidden, 75)
+    with pytest.raises(ValueError, match=r"needs \d+ bytes of gradient output"):
+        tpf.check_fits(33000, 75)
+    with pytest.raises(ValueError, match=r"needs \d+ bytes of weight pack"):
+        trf.check_offsets("weight pack a head", trf.pack_offsets(46400, 96)["PACK"], 46400)
 
 
 @pytest.mark.parametrize("adam", [False, True])
@@ -374,7 +402,7 @@ def test_make_train_step_bf16_matches_jax(branch):
     model = ActorCritic.from_flax(jax.tree.map(np.asarray, jstate.params))
     opt = tppo.make_optimizer(model, pcfg)
     penv = port_env_config(env_cfg)
-    assert tppo.train_branch(model, opt, penv, pcfg, ptrain) == branch
+    assert tppo.train_branch(model, penv, pcfg, ptrain) == branch
     tppo.make_train_step(model, opt, penv, pcfg, ptrain)
     rows = steps * b
     if branch == "fused_t":

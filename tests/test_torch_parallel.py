@@ -169,7 +169,7 @@ def test_one_rank_world_equals_the_serial_step(one_rank, fused):
     assert torch.equal(s1.gen.get_state(), s2.gen.get_state())
     serial = tppo.make_train_step(m1, o1, env_cfg, pcfg, tc)
     par = dp.make_parallel_train_step(m2, o2, env_cfg, pcfg, tc, one_rank)
-    assert tppo.train_branch(m2, o2, env_cfg, pcfg, tc, 16, True) == (
+    assert tppo.train_branch(m2, env_cfg, pcfg, tc, 16) == (
         "fused_t" if fused else "rowmajor")
     for _ in range(2):
         s1, met1 = serial(s1)
@@ -210,8 +210,8 @@ def test_fused_gate_reads_the_per_rank_batch(one_rank):
     tc = tcfg.TrainConfig(num_envs=32, rollout_steps=STEPS, network_size=HIDDEN,
                           fused_rollout=True)
     model, opt, _ = tppo.ppo_init(0, env_cfg, pcfg, tc, device="cpu")
-    assert tppo.train_branch(model, opt, env_cfg, pcfg, tc) == "fused_t"
-    assert tppo.train_branch(model, opt, env_cfg, pcfg, tc, local_envs=4) == "rowmajor"
+    assert tppo.train_branch(model, env_cfg, pcfg, tc) == "fused_t"
+    assert tppo.train_branch(model, env_cfg, pcfg, tc, local_envs=4) == "rowmajor"
     _, _, state = tppo.ppo_init(0, env_cfg, pcfg, dataclasses.replace(tc, num_envs=4),
                                 device="cpu")
     state = dataclasses.replace(state, model=model, optimizer=opt)

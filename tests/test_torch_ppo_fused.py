@@ -192,9 +192,8 @@ def test_supports_and_gather_rows():
     big = tpf._leaves(ActorCritic(hidden=128))
     assert tpf.supports(obs, big, TILE) and tpf.supports(obs, big, 3)
     assert not tpf.supports(obs, big, 40)       # does not divide 96 rows
-    for hidden in (257, 1024):                  # the wide kernels, up to 1024
+    for hidden in (257, 1024, 1025):            # the wide kernels, any width
         assert tpf.supports(obs, tpf._leaves(ActorCritic(hidden=hidden)), TILE)
-    assert not tpf.supports(obs, tpf._leaves(ActorCritic(hidden=1025)), TILE)  # above 1024
     short = tpf._leaves(ActorCritic(hidden=32, obs_dim=60))
     assert tpf.supports(obs[:, :60], short, TILE) and not tpf.supports(obs, short, TILE)
     x = torch.arange(12.0)[:, None].expand(12, 2)

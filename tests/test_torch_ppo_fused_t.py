@@ -172,10 +172,8 @@ def test_supports_and_refusals():
     assert not tpf.supports(ob, leaves, 256)          # does not divide B
     small = tpf._leaves(ActorCritic(hidden=32))
     assert tpf.supports(ob, small, 64)                # any width up to 256
-    for hidden in (257, 1024):                        # the wide kernels, up to 1024
+    for hidden in (257, 1024, 1025):                  # the wide kernels, any width
         assert tpf.supports(ob, tpf._leaves(ActorCritic(hidden=hidden)), 64)
-    wide = tpf._leaves(ActorCritic(hidden=1025))
-    assert not tpf.supports(ob, wide, 64)             # ROADMAP B, hidden widths above 1024
     # A tensor on neither the CPU nor a CUDA card is refused, not computed.
     with pytest.raises(ValueError):
         tpf.fused_ppo_grad_t(

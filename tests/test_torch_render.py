@@ -86,6 +86,20 @@ def test_render_nadir_matches_jax_and_the_pallas_kernel():
     assert nhwc[2].max() <= 0.6 * 0.95 + 1e-6
 
 
+def test_render_nadir_batch_plain_at_a_wide_non_square_camera():
+    """B5's plain version at 320 x 240 pixels (wider than 256, and not
+    square) against the JAX package's Pallas kernel in interpret mode, which
+    takes any `CameraConfig`: within 1e-4."""
+    quad, marker, bright = _poses()
+    jcam, cam = JCam(width=320, height=240), CameraConfig(width=320, height=240)
+    want = render_nadir_batch_pallas(jnp.asarray(quad), jnp.asarray(marker), jcam, JMarker(),
+                                     brightness=jnp.asarray(bright), interpret=True)
+    got = rk.render_nadir_batch_plain(t(quad), t(marker), cam, MarkerConfig(),
+                                      brightness=t(bright))
+    assert got.shape == (8, 3, 240, 320)
+    np.testing.assert_allclose(n(got.permute(0, 2, 3, 1)), np.asarray(want), atol=1e-4, rtol=0)
+
+
 def test_render_nadir_at_an_edge_two_centimetres_below():
     """The camera 0.02 m over the board's center line, an edge between
     squares: the image's slope there is 0.5 / footprint (about 2,000 per

@@ -82,7 +82,7 @@ def test_robust_train_step_matches_jax(jax_robust_step, update):
     model = ActorCritic.from_flax(jax.tree.map(np.asarray, jstate.params))
     opt = tppo.make_optimizer(model, pcfg)
     assert not tppo.uses_fused_rollout(env_cfg, pcfg, ptrain)
-    assert tppo.train_branch(model, opt, env_cfg, pcfg, ptrain) == "rowmajor"
+    assert tppo.train_branch(model, env_cfg, pcfg, ptrain) == "rowmajor"
     plan = tppo.update_plan(pcfg, STEPS * B, plain_adam=True)
     assert plan.branch == update
     perms = torch.from_numpy(jax_perms(k_upd, pcfg.k_epochs, STEPS * B // plan.block, plan.n_mb,

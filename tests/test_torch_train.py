@@ -120,7 +120,7 @@ def test_make_train_step_refuses_what_is_not_ported():
     robust = dataclasses.replace(
         env_cfg, randomization=dataclasses.replace(env_cfg.randomization, enabled=True)
     )
-    assert tppo.train_branch(model, opt, robust, pcfg, tc) == "rowmajor"
+    assert tppo.train_branch(model, robust, pcfg, tc) == "rowmajor"
     _, _, robust_state = tppo.ppo_init(0, robust, pcfg, tc, device="cpu")
     assert robust_state.env_states.dom.mass_factor.abs().max() > 0
     robust_state = dataclasses.replace(robust_state, model=model, optimizer=opt)
@@ -130,7 +130,7 @@ def test_make_train_step_refuses_what_is_not_ported():
     for p, tcc, branch in [(dataclasses.replace(pcfg, fused_compute="bf16"), tc, "fused_t"),
                            (dataclasses.replace(pcfg, fused_compute="bf16", fused_adam=True),
                             dataclasses.replace(tc, fused_rollout=False), "rowmajor")]:
-        assert tppo.train_branch(model, opt, env_cfg, p, tcc) == branch
+        assert tppo.train_branch(model, env_cfg, p, tcc) == branch
         m_b, o_b, s_b = tppo.ppo_init(0, env_cfg, p, tcc, device="cpu")
         before = [x.detach().clone() for x in m_b.parameters()]
         s_b, met_b = tppo.make_train_step(m_b, o_b, env_cfg, p, tcc)(s_b)

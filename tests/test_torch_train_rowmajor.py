@@ -52,7 +52,7 @@ def _port_step(jstate, env_cfg, ppo_kw, train_kw, k_upd, **draws):
     ptrain = tcfg.TrainConfig(num_envs=B, rollout_steps=STEPS, network_size=HIDDEN, **train_kw)
     model = ActorCritic.from_flax(jax.tree.map(np.asarray, jstate.params))
     opt = tppo.make_optimizer(model, pcfg)
-    assert tppo.train_branch(model, opt, port_env_config(env_cfg), pcfg, ptrain) == "rowmajor"
+    assert tppo.train_branch(model, port_env_config(env_cfg), pcfg, ptrain) == "rowmajor"
     plan = tppo.update_plan(pcfg, ROWS, plain_adam=True)
     perms = None
     if not plan.full_batch:
@@ -143,7 +143,7 @@ def test_make_train_step_runs_every_branch_on_the_cpu(name):
     tc = tcfg.TrainConfig(num_envs=B, rollout_steps=STEPS, network_size=HIDDEN, **train_kw)
     model, opt, state = tppo.ppo_init(0, env_cfg, pcfg, tc, obs_dim=env_cfg.hist_t * 15,
                                       device="cpu")
-    assert tppo.train_branch(model, opt, env_cfg, pcfg, tc) == branch
+    assert tppo.train_branch(model, env_cfg, pcfg, tc) == branch
     if update:
         assert tppo.update_plan(pcfg, ROWS, pcfg.learn_std).branch == update
     before = [p.detach().clone() for p in model.parameters()]
