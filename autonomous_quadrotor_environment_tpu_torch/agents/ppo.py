@@ -59,6 +59,7 @@ from ..ops import ppo_fused as pfr
 from ..ops import rollout_fused as rf
 from ..ops.ppo_fused_t import fused_ppo_grad_t
 from ..utils import graphs
+from ..utils.timing import span
 from .gae import gae_advantages
 from .networks import ActorCritic, DiagGaussian
 
@@ -267,14 +268,16 @@ def fused_inputs(
 ):
     """The kernel's inputs for one rollout: packed start states (ROWS, B),
     action noise (T, 4, B) ~ N(0, 1), a pool (P, ROWS, B) of fresh episodes
-    drawn and warmed up by `hover.reset`, and the 12 transposed leaves."""
-    b = env_states.x.shape[0]
-    device = env_states.x.device
-    noise = torch.randn(steps, 4, b, generator=gen, device=device)
-    pool_states = hover.reset(gen, env_cfg, n=pool_size * b)
-    pool = rf.pack_env_state(pool_states).reshape(rf.ROWS, pool_size, b).transpose(0, 1)
-    s0 = rf.pack_env_state(env_states)
-    return s0, noise, pool.contiguous(), rf.transpose_leaves(model)
+    drawn and warmed up by `hover.reset`, and the 12 transposed leaves;
+    under the span ``hover.inputs`` (`utils.timing.span`)."""
+    with span("hover.inputs"):
+        b = env_states.x.shape[0]
+        device = env_states.x.device
+        noise = torch.randn(steps, 4, b, generator=gen, device=device)
+        pool_states = hover.reset(gen, env_cfg, n=pool_size * b)
+        pool = rf.pack_env_state(pool_states).reshape(rf.ROWS, pool_size, b).transpose(0, 1)
+        s0 = rf.pack_env_state(env_states)
+        return s0, noise, pool.contiguous(), rf.transpose_leaves(model)
 
 
 @torch.no_grad()
@@ -624,17 +627,20 @@ def train_step_from_inputs(
     grad_reduce: Optional[GradReduce] = None,
 ) -> tuple[hover.EnvState, dict]:
     """One fully fused train step from given rollout randomness: rollout
-    kernel -> GAE -> aux packing -> `ppo_update_t` (with ``grad_reduce``).
-    Returns the new env states and the step's metrics (0-dim tensors)."""
-    new_states, obs_t, misc, bootstrap = rollout_from_inputs(
-        model, env_states, noise, pool, env_cfg
-    )
+    kernel -> GAE -> aux packing -> `ppo_update_t` (with ``grad_reduce``),
+    under the spans ``hover.rollout`` and ``hover.update``. Returns the new
+    env states and the step's metrics (0-dim tensors)."""
+    with span("hover.rollout"):
+        new_states, obs_t, misc, bootstrap = rollout_from_inputs(
+            model, env_states, noise, pool, env_cfg
+        )
     rewards, dones, solved = misc[:, 9], misc[:, 10] > 0.5, misc[:, 11] > 0.5
-    returns, advs = gae_advantages(
-        rewards, misc[:, 8], dones, bootstrap, ppo_cfg.gamma, ppo_cfg.gae_lambda
-    )
-    aux_t = pack_aux_t(misc, returns, advs)
-    metrics = ppo_update_t(model, opt, obs_t, aux_t, gen, ppo_cfg, perms, grad_reduce)
+    with span("hover.update"):
+        returns, advs = gae_advantages(
+            rewards, misc[:, 8], dones, bootstrap, ppo_cfg.gamma, ppo_cfg.gae_lambda
+        )
+        aux_t = pack_aux_t(misc, returns, advs)
+        metrics = ppo_update_t(model, opt, obs_t, aux_t, gen, ppo_cfg, perms, grad_reduce)
     return new_states, _step_metrics(metrics, rewards, dones, solved)
 
 
@@ -674,23 +680,26 @@ def rowmajor_step_from_inputs(
     (`fused_inputs`), or `rollout_batch`'s ``noise`` (T, B, 4),
     ``fresh_x0`` and under randomization ``fresh_dom``, ``fresh_gust`` and
     ``gust_eps``; and the update's ``perms``. ``grad_reduce`` goes to
-    `ppo_update`. Returns the new env states and the step's metrics (0-dim
-    tensors)."""
+    `ppo_update`, under the spans ``hover.rollout`` and ``hover.update``.
+    Returns the new env states and the step's metrics (0-dim tensors)."""
     if uses_fused_rollout(env_cfg, ppo_cfg, train_cfg):
         if noise is None:
             _, noise, pool, _ = fused_inputs(model, env_states, gen, env_cfg,
                                              train_cfg.rollout_steps, train_cfg.fused_pool)
-        new_states, obs_t, misc, bootstrap = rollout_from_inputs(
-            model, env_states, noise, pool, env_cfg
-        )
-        roll = kernel_rollout(obs_t, misc)
+        with span("hover.rollout"):
+            new_states, obs_t, misc, bootstrap = rollout_from_inputs(
+                model, env_states, noise, pool, env_cfg
+            )
+            roll = kernel_rollout(obs_t, misc)
     else:
-        new_states, roll, bootstrap = rollout_batch(
-            model, env_states, gen, env_cfg, train_cfg.rollout_steps, train_cfg.reset_pool,
-            noise=noise, fresh_x0=fresh_x0, fresh_dom=fresh_dom, fresh_gust=fresh_gust,
-            gust_eps=gust_eps,
-        )
-    metrics = ppo_update(model, opt, roll, bootstrap, gen, ppo_cfg, perms, grad_reduce)
+        with span("hover.rollout"):
+            new_states, roll, bootstrap = rollout_batch(
+                model, env_states, gen, env_cfg, train_cfg.rollout_steps, train_cfg.reset_pool,
+                noise=noise, fresh_x0=fresh_x0, fresh_dom=fresh_dom, fresh_gust=fresh_gust,
+                gust_eps=gust_eps,
+            )
+    with span("hover.update"):
+        metrics = ppo_update(model, opt, roll, bootstrap, gen, ppo_cfg, perms, grad_reduce)
     return new_states, _step_metrics(metrics, roll.rewards, roll.dones, roll.solved)
 
 
@@ -752,7 +761,8 @@ def make_train_step(
     takes a state that holds these same two objects (as `ppo_init` makes
     it) and updates them in place. Metrics are 0-dim tensors: ``loss``,
     ``actor_loss``, ``critic_loss``, ``entropy``, ``ratio_max``,
-    ``reward_per_step``, ``episodes`` and ``solved_frac``."""
+    ``reward_per_step``, ``episodes`` and ``solved_frac``. The whole step
+    runs under the span ``hover.step`` (`utils.timing.span`)."""
     branch = train_branch(model, env_cfg, ppo_cfg, train_cfg, local_envs)
 
     def train_step(state: PPOTrainState) -> tuple[PPOTrainState, dict]:
@@ -761,22 +771,23 @@ def make_train_step(
                 "state.model and state.optimizer must be the model and optimizer "
                 "this train step was made for"
             )
-        if branch == "fused_t":
-            _, noise, pool, _ = fused_inputs(
-                model, state.env_states, state.gen, env_cfg,
-                train_cfg.rollout_steps, train_cfg.fused_pool,
-            )
-            env_states, metrics = train_step_from_inputs(
-                model, opt, state.env_states, noise, pool, env_cfg, ppo_cfg, state.gen,
-                grad_reduce=grad_reduce,
-            )
-        else:
-            env_states, metrics = rowmajor_step_from_inputs(
-                model, opt, state.env_states, env_cfg, ppo_cfg, train_cfg, state.gen,
-                grad_reduce=grad_reduce,
-            )
-        if metric_reduce is not None:
-            metrics = metric_reduce(metrics)
+        with span("hover.step"):
+            if branch == "fused_t":
+                _, noise, pool, _ = fused_inputs(
+                    model, state.env_states, state.gen, env_cfg,
+                    train_cfg.rollout_steps, train_cfg.fused_pool,
+                )
+                env_states, metrics = train_step_from_inputs(
+                    model, opt, state.env_states, noise, pool, env_cfg, ppo_cfg, state.gen,
+                    grad_reduce=grad_reduce,
+                )
+            else:
+                env_states, metrics = rowmajor_step_from_inputs(
+                    model, opt, state.env_states, env_cfg, ppo_cfg, train_cfg, state.gen,
+                    grad_reduce=grad_reduce,
+                )
+            if metric_reduce is not None:
+                metrics = metric_reduce(metrics)
         return dataclasses.replace(
             state, env_states=env_states, update_i=state.update_i + 1
         ), metrics

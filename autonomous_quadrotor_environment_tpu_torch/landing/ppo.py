@@ -39,6 +39,7 @@ from ..config import PPOConfig
 from ..device import resolve_device
 from ..envs import hover
 from ..envs.sensors import SensorNoise
+from ..utils.timing import span
 from .env import (
     LandingConfigs,
     LandingObs,
@@ -397,7 +398,9 @@ def make_landing_train_step(
     call it prints a notice when the plan is frozen-composition (JAX
     landing/ppo.py:300-315). For data parallelism ``grad_reduce`` averages
     each minibatch's gradients over the ranks and ``metric_reduce`` the
-    step's metrics (JAX landing/ppo.py:246-247, :366-367)."""
+    step's metrics (JAX landing/ppo.py:246-247, :366-367). The step runs
+    under the span ``landing.step``, its rollout and update under
+    ``landing.rollout`` and ``landing.update`` (`utils.timing.span`)."""
     noticed = []
 
     def train_step(state: LandingTrainState, rollout_draws: Optional[RolloutDraws] = None,
@@ -405,22 +408,25 @@ def make_landing_train_step(
         if state.model is not model or state.optimizer is not opt:
             raise ValueError("state.model and state.optimizer must be the model and optimizer "
                              "this train step was made for")
-        env_states, obs, roll, bootstrap = landing_rollout(
-            model, state.env_states, state.obs, state.gen, cfgs, ctrl_model, rollout_steps,
-            reset_pool, image_dtype, draws=rollout_draws)
-        plan = update_plan(ppo_cfg, roll.rewards.numel())
-        if plan.frozen and not noticed:
-            noticed.append(True)
-            print(f"landing PPO: shuffle_block == minibatch ({plan.mb}) -> frozen minibatch "
-                  "composition (only block order permutes per epoch)", flush=True)
-        metrics = landing_update(model, opt, roll, bootstrap, state.gen, ppo_cfg, update_draws,
-                                 grad_reduce)
-        done_f = roll.dones.float()
-        metrics["reward_per_decision"] = roll.rewards.mean()
-        metrics["episodes"] = done_f.sum()
-        metrics["solved_frac"] = roll.solved.float().sum() / torch.clamp_min(done_f.sum(), 1.0)
-        if metric_reduce is not None:
-            metrics = metric_reduce(metrics)
+        with span("landing.step"):
+            with span("landing.rollout"):
+                env_states, obs, roll, bootstrap = landing_rollout(
+                    model, state.env_states, state.obs, state.gen, cfgs, ctrl_model,
+                    rollout_steps, reset_pool, image_dtype, draws=rollout_draws)
+            plan = update_plan(ppo_cfg, roll.rewards.numel())
+            if plan.frozen and not noticed:
+                noticed.append(True)
+                print(f"landing PPO: shuffle_block == minibatch ({plan.mb}) -> frozen minibatch "
+                      "composition (only block order permutes per epoch)", flush=True)
+            with span("landing.update"):
+                metrics = landing_update(model, opt, roll, bootstrap, state.gen, ppo_cfg,
+                                         update_draws, grad_reduce)
+            done_f = roll.dones.float()
+            metrics["reward_per_decision"] = roll.rewards.mean()
+            metrics["episodes"] = done_f.sum()
+            metrics["solved_frac"] = roll.solved.float().sum() / torch.clamp_min(done_f.sum(), 1.0)
+            if metric_reduce is not None:
+                metrics = metric_reduce(metrics)
         return dataclasses.replace(state, env_states=env_states, obs=obs,
                                    update_i=state.update_i + 1), metrics
 

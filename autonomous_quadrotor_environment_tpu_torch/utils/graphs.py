@@ -15,7 +15,9 @@ graph or another one in the pool, overwrites. Parameters that the function
 reads in place (a model's weights, which an optimizer updates in place) are
 named at capture; a call raises if one of them no longer lives where it was
 captured. Launches of the counted kernels made during the capture are taken
-back from their counters and added on every replay. A failed capture
+back from their counters and added on every replay. `CAPTURES` counts the
+captures and the host seconds they took, each up to a sync of the card,
+under the span ``graphs.capture`` (`utils.timing.span`). A failed capture
 raises: there is no eager fall back on the card. `eager()` runs every call
 eagerly for as long as it is open, to compare the two.
 """
@@ -24,9 +26,12 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import time
 from typing import Any, Callable, Optional
 
 import torch
+
+from .timing import span
 
 
 def leaves(tree) -> list:
@@ -79,6 +84,19 @@ def counted_launches() -> dict:
     return {k.__name__: k.launches for k in _counted()}
 
 
+@dataclasses.dataclass
+class Captures:
+    """The graphs captured in this process so far, and the host seconds
+    their captures took: the inputs' copies, the warm-up runs and the
+    capture, up to a sync of the card."""
+
+    count: int = 0
+    seconds: float = 0.0
+
+
+CAPTURES = Captures()
+
+
 class Graph:
     """``fn(*args)`` as one CUDA graph, for inputs of the shapes, dtypes and
     device of ``args`` (trees of tensors); ``params`` are tensors that ``fn``
@@ -88,6 +106,13 @@ class Graph:
     _pool = None
 
     def __init__(self, fn: Callable, args: tuple, params=()):
+        t0 = time.perf_counter()
+        with span("graphs.capture"):
+            self._capture(fn, args, params)
+        CAPTURES.count += 1
+        CAPTURES.seconds += time.perf_counter() - t0
+
+    def _capture(self, fn: Callable, args: tuple, params) -> None:
         self.fn = fn
         self.params = list(params)
         self.ptrs = [p.data_ptr() for p in self.params]
@@ -111,6 +136,7 @@ class Graph:
         self.captured = [(k, k.launches - b) for k, b in zip(counted, before)]
         for k, b in zip(counted, before):
             k.launches = b
+        torch.cuda.synchronize(device)
 
     def __call__(self, *args):
         for p, ptr in zip(self.params, self.ptrs):

@@ -1,10 +1,18 @@
-"""Step timing / profiling helpers.
+"""Step timing and the port's layer spans.
 
 Counterpart of `utils/timing.py` in the JAX package (the reference's
 wall-clock timers, ppo.py:386-390, ppo_forward_time.py:71-77,
 quadrotor_cv.py:58,104): one Timer that waits for the card's queued work
-before it reads the clock, so that asynchronous launches do not lie, and a
-`torch.profiler` trace context.
+before it reads the clock, so that asynchronous launches do not lie, and
+`span`, a named range at a layer boundary of the train steps.
+
+A span costs one flag check while no `torch.profiler` records. Under a
+profiler it is a host range named ``aqe::<name>`` in the profiler's own
+trace, on the clock of the card's operations and nested by the host's
+calls, so that an idle stretch of the card can be put down to the layer
+the host was in. To see them, run any app, or ``portbench/run.py --trace
+1``, under `torch.profiler.profile` and read its events or
+`export_chrome_trace`.
 """
 
 from __future__ import annotations
@@ -13,6 +21,10 @@ import contextlib
 import time
 
 import torch
+import torch.autograd.profiler as _profiler
+
+SPAN_PREFIX = "aqe::"
+_OFF = contextlib.nullcontext()
 
 
 class Timer:
@@ -39,15 +51,12 @@ class Timer:
         return self.times[-1] if self.times else 0.0
 
 
-@contextlib.contextmanager
-def profile_trace(logdir: str):
-    """`torch.profiler` trace context: CPU and (when a card is present) CUDA
-    activity, written to ``logdir`` as a Chrome trace for TensorBoard or
-    chrome://tracing."""
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(
-            activities=acts,
-            on_trace_ready=torch.profiler.tensorboard_trace_handler(logdir)) as prof:
-        yield prof
+def span(name: str):
+    """A context manager around one layer of a step: a shared null context
+    while no profiler records, else `record_function` of ``"aqe::" +
+    name``. Never open one inside a function that `utils.graphs.run` or
+    `scan` captures: it would run at the capture alone, not at the
+    replays; open it around the call."""
+    if not _profiler._is_profiler_enabled:
+        return _OFF
+    return _profiler.record_function(SPAN_PREFIX + name)

@@ -1,0 +1,9 @@
+"""Milliseconds of a step's device idle under the span ``landing.rollout``
+(`portbench/spans.py`: the profiled split of the idle applied to the
+unprofiled step's idle)."""
+
+from portbench import spans
+
+
+def read(ctx):
+    return spans.idle_ms(ctx, "landing.rollout")
