@@ -194,7 +194,8 @@ def rollout_batch(
     are reset in one batch before the first step: each is an independent
     draw from the reset distribution, so this equals resetting them step by
     step, and the step loop selects with `torch.where` and never waits on
-    the host.
+    the host. That reset is `hover.reset_replayed` (one CUDA graph replay
+    on the card), under the span ``hover.reset``.
 
     Returns ``(new_env_states, rollout, bootstrap)``, the rollout
     time-major (T, B, ...), bootstrap the critic's value of the final
@@ -204,14 +205,15 @@ def rollout_batch(
     if noise is None:
         noise = torch.randn(steps, b, 4, generator=gen, device=dev)
     n_fresh = reset_pool if reset_pool > 0 else steps
-    fresh = hover.reset(
-        gen, env_cfg, n=n_fresh * b,
-        det_state=None if fresh_x0 is None else fresh_x0.reshape(n_fresh * b, 13),
-        dtype=env_states.x.dtype,
-        dom_draws=None if fresh_dom is None else fresh_dom.reshape(n_fresh * b),
-        warmup_gust=None if fresh_gust is None else fresh_gust.reshape(-1, n_fresh * b, 3),
-        vel_u=None if fresh_vel_u is None else fresh_vel_u.reshape(n_fresh * b, 3),
-    )
+    with span("hover.reset"):
+        fresh = hover.reset_replayed(
+            gen, env_cfg, n=n_fresh * b,
+            det_state=None if fresh_x0 is None else fresh_x0.reshape(n_fresh * b, 13),
+            dtype=env_states.x.dtype,
+            dom_draws=None if fresh_dom is None else fresh_dom.reshape(n_fresh * b),
+            warmup_gust=None if fresh_gust is None else fresh_gust.reshape(-1, n_fresh * b, 3),
+            vel_u=None if fresh_vel_u is None else fresh_vel_u.reshape(n_fresh * b, 3),
+        )
     if env_cfg.randomization.enabled and gust_eps is None:
         gust_eps = torch.randn(steps, b, 3, generator=gen, device=dev)
     slot = torch.zeros(b, dtype=torch.long, device=dev)
@@ -268,13 +270,14 @@ def fused_inputs(
 ):
     """The kernel's inputs for one rollout: packed start states (ROWS, B),
     action noise (T, 4, B) ~ N(0, 1), a pool (P, ROWS, B) of fresh episodes
-    drawn and warmed up by `hover.reset`, and the 12 transposed leaves;
+    drawn and warmed up by `hover.reset_replayed` (one CUDA graph replay on
+    the card), and the 12 transposed leaves;
     under the span ``hover.inputs`` (`utils.timing.span`)."""
     with span("hover.inputs"):
         b = env_states.x.shape[0]
         device = env_states.x.device
         noise = torch.randn(steps, 4, b, generator=gen, device=device)
-        pool_states = hover.reset(gen, env_cfg, n=pool_size * b)
+        pool_states = hover.reset_replayed(gen, env_cfg, n=pool_size * b)
         pool = rf.pack_env_state(pool_states).reshape(rf.ROWS, pool_size, b).transpose(0, 1)
         s0 = rf.pack_env_state(env_states)
         return s0, noise, pool.contiguous(), rf.transpose_leaves(model)

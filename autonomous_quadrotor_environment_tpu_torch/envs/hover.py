@@ -4,6 +4,7 @@ Counterpart of `envs/hover.py` in the JAX package. The env is a pair of
 functions on a batch of envs,
 
     reset(gen, cfg, n | det_state)             -> EnvState
+    reset_replayed(gen, cfg, n | det_state)    -> EnvState  (the warmup as a CUDA graph)
     step(state, action, cfg)                   -> (EnvState, StepOut)
     step_autoreset(state, action, cfg, fresh)  -> (EnvState, StepOut)
 
@@ -34,6 +35,7 @@ from ..core.randomization import (
     wind_update,
     zeros_domain,
 )
+from ..utils import graphs
 from .featurizer import init_hist, push_hist
 from .rewards import hover_reward
 
@@ -291,6 +293,33 @@ def reset(
         falses = torch.zeros_like(state.done)
         state = state.replace(done=falses, solved=falses)
     return state
+
+
+def reset_replayed(
+    gen: Optional[torch.Generator],
+    cfg: EnvConfig,
+    n: Optional[int] = None,
+    det_state: Optional[torch.Tensor] = None,
+    dtype=torch.float32,
+    dom_draws: Optional[DomainDraws] = None,
+    warmup_gust: Optional[torch.Tensor] = None,
+    vel_u: Optional[torch.Tensor] = None,
+) -> EnvState:
+    """`reset`, with the same arguments and result: the draws are taken
+    eagerly, from ``gen`` and in `reset`'s order (`reset_draws`), and the
+    rest, the warmup steps above all, runs as the replay of one CUDA graph
+    per config, dtype and shapes (`utils.graphs.run`; eagerly on the CPU
+    and under `graphs.eager`). Eagerly, the warmup of a large batch is a
+    few thousand small launches, which leave the card waiting on the
+    host."""
+    d = reset_draws(gen, cfg, n, dtype, None if det_state is None else det_state.to(dtype),
+                    vel_u, dom_draws, warmup_gust)
+
+    def warm(d: ResetDraws) -> EnvState:
+        return reset(None, cfg, det_state=d.x0, dtype=dtype, dom_draws=d.dom,
+                     warmup_gust=d.warmup_gust, vel_u=d.vel_u)
+
+    return graphs.run(("hover.reset", cfg, dtype), warm, (d,))
 
 
 def take_envs(state: EnvState, idx) -> EnvState:

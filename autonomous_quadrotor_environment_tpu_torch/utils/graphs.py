@@ -17,13 +17,15 @@ named at capture; a call raises if one of them no longer lives where it was
 captured. Launches of the counted kernels made during the capture are taken
 back from their counters and added on every replay. `CAPTURES` counts the
 captures and the host seconds they took, each up to a sync of the card,
-under the span ``graphs.capture`` (`utils.timing.span`). A failed capture
+under the span ``graphs.capture`` (`utils.timing.span`); `REPLAYS` counts
+the replays of each key of `run`, over its shapes. A failed capture
 raises: there is no eager fall back on the card. `eager()` runs every call
 eagerly for as long as it is open, to compare the two.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import time
@@ -95,6 +97,9 @@ class Captures:
 
 
 CAPTURES = Captures()
+# The replays in this process so far, by the key given to `run` (`scan`'s
+# keys carry the chunk's length and phase).
+REPLAYS: collections.Counter = collections.Counter()
 
 
 class Graph:
@@ -184,7 +189,9 @@ def run(key, fn: Callable, args: tuple, params=()):
         graph = _GRAPHS.get(full)
         if graph is None:
             graph = _GRAPHS[full] = Graph(fn, args, params)
-        return graph(*args)
+        out = graph(*args)
+    REPLAYS[key] += 1
+    return out
 
 
 def _stack(ys: list):

@@ -797,6 +797,70 @@ def test_fly_graph_is_bit_equal_to_eager(card, robust):
     assert _same(got, want)
 
 
+RESET_ENVS = {
+    # bb_scale 0.93: a config no other test of this process captures
+    "default": EnvConfig(bb_scale=0.93),
+    "robust": EnvConfig(bb_scale=0.93, randomization=RandomizationConfig(
+        enabled=True, severity_sample=True)),
+    "velocity": EnvConfig(bb_scale=0.93, vel_target_max=(1.0, 0.5, 0.8)),
+}
+
+
+@pytest.mark.parametrize("env", RESET_ENVS.keys())
+def test_reset_replays_are_bit_equal_to_eager_and_counted(card, env):
+    """`hover.reset_replayed` at a 4 x 8192 pool (32,768 envs), two
+    successive replays from other draws, each equal to the bit to `reset`
+    run eagerly on the same draws (no static buffer leaks from one call to
+    the next); one replay counted a call; one capture per (config, n)."""
+    from autonomous_quadrotor_environment_tpu_torch.utils import graphs
+
+    cfg, n = RESET_ENVS[env], 32768
+    key = ("hover.reset", cfg, torch.float32)
+    captures, replays = graphs.CAPTURES.count, graphs.REPLAYS[key]
+    gen = lambda seed: torch.Generator(device=card).manual_seed(seed)
+    got = [hover.reset_replayed(gen(s), cfg, n) for s in (1, 2)]
+    assert (graphs.CAPTURES.count, graphs.REPLAYS[key]) == (captures + 1, replays + 2)
+    with graphs.eager():
+        want = [hover.reset(gen(s), cfg, n) for s in (1, 2)]
+    assert graphs.REPLAYS[key] == replays + 2
+    assert not _same(want[0], want[1])
+    assert _same(got[0], want[0]) and _same(got[1], want[1])
+    # another n is another graph; the first n's is replayed again
+    assert _same(hover.reset_replayed(gen(3), cfg, 1024), hover.reset(gen(3), cfg, 1024))
+    assert _same(hover.reset_replayed(gen(2), cfg, n), want[1])
+    assert (graphs.CAPTURES.count, graphs.REPLAYS[key]) == (captures + 2, replays + 4)
+
+
+@pytest.mark.parametrize("branch", ["fused_t", "rowmajor"])
+def test_a_train_step_replays_its_fresh_episodes_reset_once(card, branch, monkeypatch):
+    """A fully fused step (`fused_inputs`' pool) and a step at the trainer's
+    defaults (`rollout_batch`'s fresh episodes) each reset through one
+    replay of the reset graph: `reset` runs only at the capture, on drawn
+    inputs."""
+    from autonomous_quadrotor_environment_tpu_torch.utils import graphs
+
+    env_cfg = EnvConfig(bb_scale=0.94)
+    tcfg = TrainConfig(num_envs=256, rollout_steps=16, fused_rollout=branch == "fused_t")
+    pcfg = (PPOConfig(k_epochs=1, minibatch_size=1024, shuffle_block=256, fused_update=True)
+            if branch == "fused_t" else PPOConfig(k_epochs=1))
+    model, opt, state = ppo.ppo_init(0, env_cfg, pcfg, tcfg)
+    assert ppo.train_branch(model, env_cfg, pcfg, tcfg) == branch
+    step = ppo.make_train_step(model, opt, env_cfg, pcfg, tcfg)
+    key = ("hover.reset", env_cfg, torch.float32)
+    before, captures, eager = graphs.REPLAYS[key], graphs.CAPTURES.count, []
+    reset = hover.reset
+    monkeypatch.setattr(hover, "reset",
+                        lambda gen, *a, **kw: eager.append(gen) or reset(gen, *a, **kw))
+    for i in range(3):
+        state, metrics = step(state)
+        assert graphs.REPLAYS[key] == before + i + 1
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(v).all() for v in metrics.values())
+    # the capture's two warm-up runs and the capture itself, in the first step
+    assert eager == [None] * 3
+    assert graphs.CAPTURES.count > captures
+
+
 def test_a_replaced_parameter_makes_the_graph_raise(card):
     """A graph reads the model's weights in place: an in-place update is
     seen by the next replay, a parameter replaced by another tensor

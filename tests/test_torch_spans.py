@@ -74,9 +74,9 @@ def hover_step(fused: bool):
 @pytest.mark.parametrize("fused", [True, False], ids=["fused", "rowmajor"])
 def test_a_hover_step_records_its_layer_spans(fused, tmp_path):
     step = hover_step(fused)
-    layers = ["hover.inputs"] * fused + ["hover.rollout", "hover.update"]
-    assert traced(step, tmp_path / "trace.json") == (
-        [("hover.step", 0)] + [(name, 1) for name in layers])
+    layers = [("hover.inputs", 1)] * fused + [("hover.rollout", 1)] + [
+        ("hover.reset", 2)] * (not fused) + [("hover.update", 1)]
+    assert traced(step, tmp_path / "trace.json") == [("hover.step", 0)] + layers
 
 
 def test_a_landing_step_records_its_layer_spans(tmp_path):
